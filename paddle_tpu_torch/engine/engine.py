@@ -1,0 +1,539 @@
+"""ServeEngine: the online inference serve loop (port of
+paddle_tpu/engine/engine.py).
+
+A refcounted `PagedKVCache` holds KV state in block pools (prefix-
+shared, copy-on-write), a `Scheduler` plans one MIXED batch per step
+(decode rows + prefill chunks), and this engine runs each step as ONE
+`CausalLM.ragged_step_paged` call, samples tokens on the host with
+numpy, streams them to per-request callbacks, and emits structured
+`serve_event` JSON (utils/log.py).
+
+Shape discipline — the port's form of the one-compile rule: every step
+runs at a FIXED shape. The step's rows are packed into a single [T]
+token array, T = round_up(chunk_budget, tile_q) + max_batch_size *
+tile_q, with each row's tokens in a tile_q-aligned segment and per-tile
+metadata mapping tiles back to rows. Row membership, chunk boundaries
+and prefix-cache hits only change int32 operand VALUES, never shapes
+(`step_shapes` records every signature seen; it stays at one). Pad
+positions scatter to the reserved scratch block 0 (context_len 1,
+slot 0) so they can never touch a live sequence. COW block copies run
+in fixed-width batches of _COPY_LANES lanes; unused lanes copy scratch
+block 0 onto itself.
+
+Rows of a batch are computed independently by every op in the step
+(the attention kernel keeps each row's kv loop inside one CTA and
+masked lanes underflow to exact zeros), so a request's logits are
+identical whether it shares the batch or runs alone. Sampling derives
+its rng stream from (request seed, absolute position), never from
+batch composition, so scheduling decisions can't change a request's
+output.
+
+Not ported yet (ROADMAP.md): tensor-parallel serving, the host-RAM and
+in-device int8 KV tiers, speculative decoding and n-best forks, and
+`from_saved_model`.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.engine.paged_cache import PagedKVCache
+from paddle_tpu_torch.engine.scheduler import Request, Scheduler, StepRow
+from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
+from paddle_tpu_torch.obs.tracing import RequestTracer
+from paddle_tpu_torch.utils.log import serve_event
+
+_COPY_LANES = 8     # COW copies flushed through one fixed-shape call
+
+
+def serve_metadata(model) -> dict:
+    """Introspect a CausalLM into the manifest `serve` block: everything
+    needed to rebuild the module and size its KV pools."""
+    attn = model.blocks[0].attn
+    return {
+        "model_type": "causal_lm",
+        "vocab": model.vocab,
+        "model_dim": model.model_dim,
+        "num_heads": attn.num_heads,
+        "num_kv_heads": attn.num_kv_heads,
+        "head_dim": attn.head_dim,
+        "num_layers": len(model.blocks),
+        "ffn_dim": model.blocks[0].ffn.fc1.out_features,
+        "max_len": model.max_len,
+        "tie_embeddings": model.tie_embeddings,
+        "fused_qkv": attn.fused_qkv,
+    }
+
+
+def _sample(logits: np.ndarray, req: Request, pos: int
+            ) -> "tuple[int, float]":
+    """Host-side sampling for one row: (token, log-probability of that
+    token under the sampling distribution — greedy scores against the
+    plain softmax). Deterministic in (req.seed, pos): the same request
+    samples the same token at the same position no matter what batch
+    it rode in. Verbatim from the JAX engine, so it ports bit for
+    bit."""
+    if req.temperature <= 0.0:
+        tok = int(np.argmax(logits))
+        z = logits.astype(np.float64)
+        z = z - z.max()
+        return tok, float(z[tok] - np.log(np.exp(z).sum()))
+    z = logits.astype(np.float64) / req.temperature
+    if 0 < req.top_k < z.size:
+        kth = np.partition(z, -req.top_k)[-req.top_k]
+        z = np.where(z < kth, -np.inf, z)
+    z = z - z.max()
+    p = np.exp(z)
+    p /= p.sum()
+    rng = np.random.default_rng([req.seed & 0x7FFFFFFF, pos])
+    tok = int(rng.choice(z.size, p=p))
+    return tok, float(np.log(p[tok]))
+
+
+class ServeEngine:
+    """Continuous-batching serve loop over a CausalLM.
+
+    add_request() enqueues; step() advances the world by one scheduler
+    plan — ONE mixed batch of decode rows and prefill chunks through a
+    single step call; run() drains the queue. Token callbacks fire as
+    tokens are sampled.
+
+    `max_prefill_tokens` is the per-step CHUNK budget: prompts longer
+    than it are admitted anyway and prefilled across several steps,
+    with decode rows riding the same steps. Budgets above the model's
+    usable context are clamped; budgets < 1 are rejected. `tile_q` is
+    the ragged packing's query-tile granularity.
+    `enable_prefix_cache=False` turns off block sharing. `device`
+    defaults to the CUDA card and must be the model's device."""
+
+    def __init__(self, model, max_batch_size: int = 4,
+                 block_size: int = 16, num_blocks: int = 256,
+                 max_seq_len: Optional[int] = None,
+                 max_prefill_tokens: int = 512,
+                 tile_q: int = 8,
+                 enable_prefix_cache: bool = True,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[RequestTracer] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if self.device != model.device:
+            raise ValueError(f"engine device {self.device} != model device "
+                             f"{model.device}")
+        self.model = model
+        self.obs = registry if registry is not None else default_registry()
+        self.tracer = tracer if tracer is not None else RequestTracer()
+        attn = model.blocks[0].attn
+        self.max_seq_len = min(max_seq_len or model.max_len, model.max_len)
+        self.max_batch_size = max_batch_size
+        if max_prefill_tokens < 1:
+            raise ValueError(
+                f"max_prefill_tokens {max_prefill_tokens} < 1: the chunk "
+                "budget must admit at least one prompt token per step")
+        if tile_q < 1:
+            raise ValueError(f"tile_q {tile_q} < 1")
+        if max_prefill_tokens > self.max_seq_len:
+            # a single chunk can never exceed the usable context, so a
+            # larger budget only inflates the step shape
+            serve_event("serve_config_clamp", field="max_prefill_tokens",
+                        requested=max_prefill_tokens,
+                        clamped_to=self.max_seq_len)
+            max_prefill_tokens = self.max_seq_len
+        self.tile_q = tile_q
+        # flat step sizing: every row's segment is tile-aligned, so the
+        # worst case is max_batch_size rows each wasting tile_q - 1
+        # slots on top of the chunk budget
+        self.flat_tokens = (-(-max_prefill_tokens // tile_q) * tile_q
+                            + max_batch_size * tile_q)
+        self.num_tiles = self.flat_tokens // tile_q
+        self.cache = PagedKVCache(
+            num_layers=len(model.blocks), num_blocks=num_blocks,
+            block_size=block_size, num_kv_heads=attn.num_kv_heads,
+            head_dim=attn.head_dim, dtype=model.dtype, device=self.device,
+            enable_prefix_cache=enable_prefix_cache, registry=self.obs)
+        self.max_blocks_per_seq = self.cache.blocks_for(self.max_seq_len)
+        self.scheduler = Scheduler(
+            self.cache, max_batch_size=max_batch_size,
+            max_prefill_tokens=max_prefill_tokens,
+            max_seq_len=self.max_seq_len - 1)  # leave room for >=1 new token
+        self.scheduler.on_preempt = self._on_preempt
+        self.scheduler.on_admit = self._on_admit
+        self.finished: Dict[int, Request] = {}
+        self.steps = 0
+        self.prefill_tokens_computed = 0
+        self.peak_occupancy = 0.0
+        self.max_chunk_tokens = 0       # largest prefill step actually run
+        # every distinct step-operand shape signature seen: the port's
+        # one-compile invariant is that this stays at exactly one
+        self.step_shapes: set = set()
+        self._register_metrics()
+
+    # -- telemetry --------------------------------------------------------
+    def _register_metrics(self) -> None:
+        """Metric families this engine records (the JAX engine's names).
+        Families are get-or-create: engines sharing a registry share
+        series. Everything here is host-side bookkeeping."""
+        m = self.obs
+        self._m_ttft = m.histogram(
+            "ptpu_serve_ttft_ms", "Enqueue to first token (ms)")
+        self._m_tpot = m.histogram(
+            "ptpu_serve_tpot_ms",
+            "Per-request mean decode latency per output token (ms)")
+        self._m_queue_wait = m.histogram(
+            "ptpu_serve_queue_wait_ms", "Enqueue to first admission (ms)")
+        self._m_e2e = m.histogram(
+            "ptpu_serve_e2e_ms", "Enqueue to finish (ms)")
+        self._m_step = m.histogram(
+            "ptpu_serve_step_ms", "Engine step wall time (ms)",
+            labelnames=("kind",))        # kind=decode|prefill|mixed
+        self._m_reqs = m.counter(
+            "ptpu_serve_requests_total", "Finished requests",
+            labelnames=("reason",))      # reason=eos|length|cancelled
+        self._m_tokens = m.counter(
+            "ptpu_serve_tokens_total", "Token flow through the engine",
+            labelnames=("kind",))        # kind=prefill|cached|generated
+        self._m_steps = m.counter(
+            "ptpu_engine_steps_total", "Mixed steps executed")
+        self._m_compiles = m.gauge(
+            "ptpu_engine_compiles",
+            "Distinct step operand shape signatures (the one-compile "
+            "invariant: stays at 1 across arbitrary traffic)")
+        self._m_occ = m.gauge(
+            "ptpu_kv_occupancy", "Fraction of allocatable blocks in use")
+        self._m_hit = m.gauge(
+            "ptpu_kv_hit_rate",
+            "Cumulative fraction of prompt tokens served from the "
+            "prefix cache")
+        self._m_shared = m.gauge(
+            "ptpu_kv_shared_blocks", "Blocks with refcount > 1")
+        self._m_queue_depth = m.gauge(
+            "ptpu_sched_queue_depth", "Requests waiting for admission")
+        self._m_running = m.gauge(
+            "ptpu_sched_running", "Requests in the running set")
+        self._m_decode_rows = m.gauge(
+            "ptpu_sched_decode_rows", "Decode rows in the last step")
+        self._m_prefill_rows = m.gauge(
+            "ptpu_sched_prefill_rows", "Prefill chunks in the last step")
+        self._m_budget_util = m.gauge(
+            "ptpu_sched_chunk_budget_util",
+            "Chunk tokens / max_prefill_tokens of the last "
+            "prefill-bearing step")
+        self._m_preempts = m.counter(
+            "ptpu_sched_preemptions_total", "Recompute preemptions")
+
+    def _on_admit(self, req: Request) -> None:
+        """Scheduler hook: a request left the wait queue. Queue-wait is
+        observed only on FIRST admission."""
+        now = time.monotonic()
+        if req.admit_time == 0.0:
+            self._m_queue_wait.observe((now - req.enqueue_time) * 1e3)
+        req.admit_time = now
+        self.tracer.on_admit(req.req_id)
+        self._set_sched_gauges()
+
+    def _set_sched_gauges(self) -> None:
+        self._m_queue_depth.set(self.scheduler.queue_depth)
+        self._m_running.set(len(self.scheduler.running))
+
+    def metrics_text(self) -> str:
+        """Prometheus exposition of this engine's registry."""
+        return self.obs.render_prometheus()
+
+    # -- intake -----------------------------------------------------------
+    def add_request(self, prompt: List[int], max_new_tokens: int = 32,
+                    temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                    eos_id: Optional[int] = None,
+                    callback: Optional[Callable[[int], None]] = None,
+                    deadline_ms: Optional[float] = None) -> Request:
+        """Enqueue one completion."""
+        if not prompt:
+            raise ValueError("empty prompt")
+        if len(prompt) + 1 > self.max_seq_len:
+            raise ValueError(f"prompt len {len(prompt)} leaves no room to "
+                             f"generate under max_seq_len {self.max_seq_len}")
+        if self.cache.blocks_for(len(prompt) + 1) > self.cache.num_blocks - 1:
+            raise ValueError(
+                f"prompt len {len(prompt)} cannot fit the KV pool even "
+                f"alone ({self.cache.num_blocks - 1} blocks of "
+                f"{self.cache.block_size}); raise num_blocks")
+        req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
+                      temperature=temperature, top_k=top_k, seed=seed,
+                      eos_id=eos_id, callback=callback)
+        req.enqueue_time = time.monotonic()
+        if deadline_ms is not None:
+            req.deadline = req.enqueue_time + deadline_ms / 1e3
+        self.scheduler.add(req)
+        self.tracer.on_enqueue(req.req_id)
+        self._set_sched_gauges()
+        serve_event("serve_admit", req_id=req.req_id,
+                    prompt_len=len(prompt),
+                    queue_depth=self.scheduler.queue_depth)
+        return req
+
+    def cancel(self, req: Request, reason: str = "cancelled") -> bool:
+        """Tear a request down mid-flight: frees its KV blocks (shared
+        prefix blocks drop one refcount), counts it under
+        requests{reason=...}, and closes its trace. Returns False when
+        it already finished. Between steps only."""
+        if not self.scheduler.cancel(req):
+            return False
+        req.finish_time = time.monotonic()
+        req.finish_reason = reason
+        self.finished[req.req_id] = req
+        self._m_reqs.labels(reason=reason).inc()
+        self._set_sched_gauges()
+        self._m_occ.set(self.cache.occupancy())
+        self.tracer.on_finish(req.req_id, reason)
+        serve_event("serve_cancel", req_id=req.req_id, reason=reason,
+                    tokens=req.num_generated,
+                    occupancy=round(self.cache.occupancy(), 4))
+        return True
+
+    # -- serve loop --------------------------------------------------------
+    def step(self) -> bool:
+        """Advance one scheduler plan (one mixed batch through the
+        single step call). Returns False when idle."""
+        t0 = time.perf_counter()
+        rows = self.scheduler.next_batch()
+        if rows is None:
+            return False
+        self.steps += 1
+        n_chunks, n_decodes, chunk_tokens = self._step_mixed(rows)
+        self.peak_occupancy = max(self.peak_occupancy,
+                                  self.cache.occupancy())
+        kind = ("mixed" if n_chunks and n_decodes
+                else "prefill" if n_chunks else "decode")
+        self._m_step.labels(kind=kind).observe(
+            (time.perf_counter() - t0) * 1e3)
+        self._m_steps.inc()
+        self._m_compiles.set(len(self.step_shapes))
+        self._m_occ.set(self.cache.occupancy())
+        self._m_hit.set(self.cache.hit_rate())
+        self._m_shared.set(self.cache.shared_blocks)
+        self._m_queue_depth.set(self.scheduler.queue_depth)
+        self._m_running.set(len(self.scheduler.running))
+        self._m_decode_rows.set(n_decodes)
+        self._m_prefill_rows.set(n_chunks)
+        if n_chunks:
+            self._m_budget_util.set(
+                chunk_tokens / self.scheduler.max_prefill_tokens)
+        return True
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain the queue; returns {req_id: generated token ids}."""
+        while self.step():
+            pass
+        return {rid: self._generated_of(r)
+                for rid, r in self.finished.items()}
+
+    # -- internals ---------------------------------------------------------
+    def _copy_blocks(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """COW replay: dst blocks take src blocks' contents, every layer,
+        in place (index_select copies the sources out first, so a lane
+        never reads a block another lane of the batch wrote); padding
+        lanes are (0, 0) — scratch onto itself."""
+        with torch.inference_mode():
+            for kp, vp in self.cache.pools:
+                kp.index_copy_(0, dst, kp.index_select(0, src))
+                vp.index_copy_(0, dst, vp.index_select(0, src))
+
+    def _flush_cow(self) -> None:
+        """Replay queued copy-on-write block copies on the device pools
+        BEFORE the step that writes the fresh blocks, in fixed-width
+        _COPY_LANES batches."""
+        copies = self.cache.drain_copies()
+        for i in range(0, len(copies), _COPY_LANES):
+            batch = copies[i:i + _COPY_LANES]
+            src = np.zeros((_COPY_LANES,), np.int64)
+            dst = np.zeros((_COPY_LANES,), np.int64)
+            for j, (s, d) in enumerate(batch):
+                src[j], dst[j] = s, d
+            self._copy_blocks(self._to_device(src), self._to_device(dst))
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _step_mixed(self, rows: List[StepRow]) -> "tuple[int, int, int]":
+        """Pack the plan's rows — decode rows AND prefill chunks — into
+        the flat ragged layout and run ONE step. Row i's token window
+        [start, start+length) lands in a tile_q-aligned segment of the
+        [T] arrays; per-row metadata (block table, chunk-end context,
+        start position) sits at index i, and the null row at index
+        max_batch_size backs pad tiles (ctx 1, scratch table). For a
+        decode row the window is [seq_len, seq_len+1) of req.tokens —
+        the last generated token at its next-token position."""
+        self._flush_cow()
+        t_flat, tq, nt = self.flat_tokens, self.tile_q, self.num_tiles
+        b = self.max_batch_size
+        mb = self.max_blocks_per_seq
+        tokens = np.zeros((t_flat,), np.int64)
+        positions = np.zeros((t_flat,), np.int64)
+        # pad positions scatter into scratch block 0 (slot < bs)
+        slots = np.zeros((t_flat,), np.int64)
+        block_tables = np.zeros((b + 1, mb), np.int32)
+        context_lens = np.ones((b + 1,), np.int32)   # null/pad rows: scratch
+        q_starts = np.zeros((b + 1,), np.int32)
+        tile_rows = np.full((nt,), b, np.int32)      # pad tiles -> null row
+        tile_offs = np.zeros((nt,), np.int32)
+        last_idx = np.zeros((b,), np.int64)
+        cursor = 0
+        for i, row in enumerate(rows):
+            r = row.req
+            tokens[cursor:cursor + row.length] = \
+                r.tokens[row.start:row.start + row.length]
+            positions[cursor:cursor + row.length] = np.arange(
+                row.start, row.start + row.length)
+            for p in range(row.length):
+                slots[cursor + p] = self.cache.slot_of(r.req_id,
+                                                       row.start + p)
+            block_tables[i] = self.cache.padded_table(r.req_id, mb)
+            context_lens[i] = row.start + row.length
+            q_starts[i] = row.start
+            last_idx[i] = cursor + row.length - 1
+            ntiles = -(-row.length // tq)
+            t0 = cursor // tq
+            for k in range(ntiles):
+                tile_rows[t0 + k] = i
+                tile_offs[t0 + k] = k * tq
+            cursor += ntiles * tq
+        operands = [tokens, positions, block_tables, context_lens, q_starts,
+                    tile_rows, tile_offs, slots, last_idx]
+        self.step_shapes.add(tuple((a.shape, a.dtype.str) for a in operands))
+        dev = [self._to_device(a) for a in operands]
+        with torch.inference_mode():
+            logits = self.model.ragged_step_paged(
+                dev[0], dev[1], self.cache.pools, *dev[2:])
+            logits = logits.float().cpu().numpy()
+        chunks = [w for w in rows if not w.decode]
+        decodes = [w for w in rows if w.decode]
+        computed = sum(w.length for w in chunks)
+        now = time.monotonic()
+        for i, row in enumerate(rows):
+            r = row.req
+            if row.decode:
+                # the step wrote r.generated[-1]'s k/v at the reserved
+                # slot; logits[i] predict the token at cache seq_len
+                self.cache.advance(r.req_id, r.generated[-1])
+                tok, lp = _sample(logits[i], r, self.cache.seq_len(r.req_id))
+                r.logprob_sum += lp
+                self._emit_token(r, tok)
+            else:
+                self.cache.commit_prefill(r.req_id, row.start + row.length)
+                self.tracer.on_chunk(r.req_id, row.start, row.length)
+                if row.start + row.length == len(r.prompt):  # final chunk
+                    tok, lp = _sample(logits[i], r, len(r.prompt))
+                    r.logprob_sum += lp
+                    if not r.first_token_time:
+                        r.first_token_time = now
+                    self.tracer.on_first_token(r.req_id)
+                    self._emit_token(r, tok)
+        if chunks:
+            # a request's prefix-hit tokens are attributed to the step
+            # its FIRST chunk runs (start == cached_tokens), so summing
+            # `cached` over a drain equals hit_tokens
+            cached = sum(w.req.cached_tokens for w in chunks
+                         if w.start == w.req.cached_tokens)
+            self.prefill_tokens_computed += computed
+            self.max_chunk_tokens = max(self.max_chunk_tokens, computed)
+            self._m_tokens.labels(kind="prefill").inc(computed)
+            if cached:
+                self._m_tokens.labels(kind="cached").inc(cached)
+            serve_event("serve_prefill", batch=len(chunks),
+                        flat_t=t_flat, tokens=computed, cached=cached,
+                        step=self.steps, cow=self.cache.cow_copies,
+                        shared_blocks=self.cache.shared_blocks,
+                        hit_rate=round(self.cache.hit_rate(), 4),
+                        occupancy=round(self.cache.occupancy(), 4),
+                        queue_depth=self.scheduler.queue_depth)
+        if decodes:
+            serve_event("serve_decode", batch=len(decodes),
+                        step=self.steps,
+                        occupancy=round(self.cache.occupancy(), 4),
+                        queue_depth=self.scheduler.queue_depth)
+        return len(chunks), len(decodes), computed
+
+    def _emit_token(self, req: Request, tok: int) -> None:
+        req.generated.append(tok)
+        self._m_tokens.labels(kind="generated").inc()
+        if req.callback is not None:
+            req.callback(tok)
+        hit_eos = req.eos_id is not None and tok == req.eos_id
+        out_of_room = (len(req.tokens) >= self.max_seq_len - 1)
+        if hit_eos or req.num_generated >= req.max_new_tokens or out_of_room:
+            self._finish(req, "eos" if hit_eos else "length")
+
+    def _finish(self, req: Request, reason: str) -> None:
+        req.finish_time = time.monotonic()
+        self.scheduler.finish(req, reason)
+        self.finished[req.req_id] = req
+        ttft_ms = (req.first_token_time - req.enqueue_time) * 1e3
+        decode_s = max(req.finish_time - req.first_token_time, 1e-9)
+        n_gen = req.num_generated
+        self._m_ttft.observe(ttft_ms)
+        self._m_e2e.observe((req.finish_time - req.enqueue_time) * 1e3)
+        if n_gen > 1:
+            self._m_tpot.observe(decode_s * 1e3 / (n_gen - 1))
+        self._m_reqs.labels(reason=reason).inc()
+        self._set_sched_gauges()
+        self.tracer.on_finish(req.req_id, reason)
+        serve_event("serve_done", req_id=req.req_id, reason=reason,
+                    tokens=n_gen, ttft_ms=round(ttft_ms, 3),
+                    decode_tok_s=round(max(n_gen - 1, 0) / decode_s, 2),
+                    cached_tokens=req.cached_tokens,
+                    preemptions=req.preemptions)
+
+    def _on_preempt(self, req: Request) -> None:
+        self._m_preempts.inc()
+        self._set_sched_gauges()
+        self.tracer.on_preempt(req.req_id)
+        serve_event("serve_preempt", req_id=req.req_id,
+                    kept_tokens=len(req.prompt),
+                    occupancy=round(self.cache.occupancy(), 4))
+
+    # -- observability -----------------------------------------------------
+    def stats(self) -> Dict[str, float]:
+        """Cumulative serve counters: prefix-cache hit rate, prefill
+        tokens actually computed, COW/shared block counts, peak block
+        occupancy."""
+        out = self.cache.stats()
+        out.update({
+            "prefill_tokens_computed": self.prefill_tokens_computed,
+            "peak_occupancy": round(self.peak_occupancy, 4),
+            "max_chunk_tokens": self.max_chunk_tokens,
+            "steps": self.steps,
+        })
+        return out
+
+    def reset_stats(self) -> None:
+        """Zero the cumulative counters (after a warmup drain) without
+        touching live state; also zeroes this engine's metrics registry
+        IN PLACE and the request tracer."""
+        self.cache.reset_stats()
+        self.prefill_tokens_computed = 0
+        self.peak_occupancy = 0.0
+        self.max_chunk_tokens = 0
+        self.steps = 0
+        self.obs.reset()
+        self.tracer.reset()
+
+    # -- convenience --------------------------------------------------------
+    def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
+                 **kwargs) -> List[List[int]]:
+        """Batch-submit prompts, drain, return generations in order."""
+        reqs = [self.add_request(p, max_new_tokens=max_new_tokens, **kwargs)
+                for p in prompts]
+        self.run()
+        return [self._generated_of(r) for r in reqs]
+
+    @staticmethod
+    def _generated_of(req: Request) -> List[int]:
+        """All tokens generated for a request, reassembling the ones a
+        preemption folded into the prompt."""
+        if req.preempt_carry:
+            carried = req.prompt[len(req.prompt) - req.preempt_carry:]
+            return list(carried) + list(req.generated)
+        return list(req.generated)

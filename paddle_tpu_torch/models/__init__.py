@@ -1,0 +1,6 @@
+"""Models of the port (paddle_tpu/models counterpart)."""
+
+from paddle_tpu_torch.models.convert import load_jax_params
+from paddle_tpu_torch.models.transformer import CausalLM
+
+__all__ = ["CausalLM", "load_jax_params"]

@@ -1,0 +1,102 @@
+"""The dense layers the CausalLM needs (port of paddle_tpu/nn/layers.py).
+
+Parameter layout and numerics follow the JAX layers so weights carry
+across unchanged (models/convert.py):
+
+- `Linear` keeps the `[in, out]` weight layout and computes
+  `x @ w + b` in the layer's compute dtype (JAX `Linear.forward`).
+- `Embedding` holds a `[V, D]` table; `attend` is the tied output head
+  `x @ table.T`.
+- `LayerNorm` computes in float32 with eps 1e-5 and returns the input
+  dtype; its parameters are named `scale` and `bias` as in JAX.
+- `Dropout` is the identity in eval mode (the upscale-in-train
+  convention when training).
+
+Parameters are stored in float32, as JAX's `param_dtype` does, and are
+cast to the compute dtype at each matmul.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Linear(nn.Module):
+    """Fully-connected layer: y = x @ weight + bias, weight [in, out]."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(in_features, out_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if use_bias else None)
+        # glorot_uniform, the JAX Linear's default initializer
+        nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class Embedding(nn.Module):
+    """Token lookup into a [V, D] table, plus the tied output head."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.features = features
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(num_embeddings, features, device=device))
+        nn.init.normal_(self.weight, 0.0, 0.02)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids].to(self.dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-softmax projection: x @ table.T (LM output heads)."""
+        return torch.matmul(x.to(self.dtype), self.weight.t().to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """Layer normalisation over the last axis, computed in float32."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Identity in eval mode; upscale-in-train dropout when training."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        return F.dropout(x, self.rate, training=True)
