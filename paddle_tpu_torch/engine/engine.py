@@ -28,13 +28,27 @@ its rng stream from (request seed, absolute position), never from
 batch composition, so scheduling decisions can't change a request's
 output.
 
-Not ported yet (ROADMAP.md): tensor-parallel serving, the host-RAM and
-in-device int8 KV tiers, speculative decoding and n-best forks, and
-`from_saved_model`.
+In-device int8 KV tier (`kv_compress_blocks > 0`): cold prefix blocks
+quantize into the cache's int8 pools, and a prefix hit on one is read
+in place by the step's mixed attention kernel (or promoted back to fp,
+per `kv_promote_hits`). The quantize and promote traffic runs as
+fixed-lane `index_copy_` scatters before the step. With the tier on,
+EVERY step passes the int8 pools, so the step keeps one shape under
+fp -> int8 -> fp churn.
+
+`ServeEngine.from_saved_model(dir)` serves a model exported by the JAX
+package (`save_inference_model(..., serve_meta=serve_metadata(model))`),
+reading it without JAX (io/checkpoint.py).
+
+Not ported yet (ROADMAP.md): tensor-parallel serving, the host-RAM KV
+tier, speculative decoding and n-best forks, and the fleet prefix
+directory.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -44,11 +58,16 @@ import torch
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.engine.paged_cache import PagedKVCache
 from paddle_tpu_torch.engine.scheduler import Request, Scheduler, StepRow
+from paddle_tpu_torch.io.checkpoint import load_checkpoint
+from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
 from paddle_tpu_torch.obs.tracing import RequestTracer
+from paddle_tpu_torch.quant.int8_compute import (dequantize_block,
+                                                 quantize_block)
 from paddle_tpu_torch.utils.log import serve_event
 
 _COPY_LANES = 8     # COW copies flushed through one fixed-shape call
+_TIER_LANES = 8     # int8-tier compress/promote lanes per flush call
 
 
 def serve_metadata(model) -> dict:
@@ -108,8 +127,12 @@ class ServeEngine:
     with decode rows riding the same steps. Budgets above the model's
     usable context are clamped; budgets < 1 are rejected. `tile_q` is
     the ragged packing's query-tile granularity.
-    `enable_prefix_cache=False` turns off block sharing. `device`
-    defaults to the CUDA card and must be the model's device."""
+    `enable_prefix_cache=False` turns off block sharing.
+    `kv_compress_blocks` > 0 sizes the in-device int8 tier (0 is the
+    plain engine, bit for bit); `kv_promote_hits` 0 reads compressed
+    hits in place, 1 always promotes them to fp, N > 1 promotes a
+    prefix once it has been hit N times. `device` defaults to the CUDA
+    card and must be the model's device."""
 
     def __init__(self, model, max_batch_size: int = 4,
                  block_size: int = 16, num_blocks: int = 256,
@@ -119,6 +142,8 @@ class ServeEngine:
                  enable_prefix_cache: bool = True,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[RequestTracer] = None,
+                 kv_compress_blocks: int = 0,
+                 kv_promote_hits: int = 0,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if self.device != model.device:
@@ -154,7 +179,9 @@ class ServeEngine:
             num_layers=len(model.blocks), num_blocks=num_blocks,
             block_size=block_size, num_kv_heads=attn.num_kv_heads,
             head_dim=attn.head_dim, dtype=model.dtype, device=self.device,
-            enable_prefix_cache=enable_prefix_cache, registry=self.obs)
+            enable_prefix_cache=enable_prefix_cache, registry=self.obs,
+            compress_blocks=kv_compress_blocks,
+            promote_hits=kv_promote_hits)
         self.max_blocks_per_seq = self.cache.blocks_for(self.max_seq_len)
         self.scheduler = Scheduler(
             self.cache, max_batch_size=max_batch_size,
@@ -171,6 +198,36 @@ class ServeEngine:
         # one-compile invariant is that this stays at exactly one
         self.step_shapes: set = set()
         self._register_metrics()
+
+    # -- construction from an exported artifact ---------------------------
+    @classmethod
+    def from_saved_model(cls, model_dir: str, device: DeviceLike = None,
+                         **engine_kwargs) -> "ServeEngine":
+        """Build model + engine from a directory the JAX package's
+        `save_inference_model` wrote with the manifest's `serve` block
+        (`serve_metadata`): the model is rebuilt from `signature.json`
+        and its weights read from the `params` checkpoint with numpy.
+        `max_seq_len` defaults to the model's max_len. `device`
+        defaults to the CUDA card."""
+        with open(os.path.join(model_dir, "signature.json")) as f:
+            sig = json.load(f)
+        meta = sig.get("serve")
+        if meta is None:
+            raise ValueError(
+                f"{model_dir} has no `serve` metadata in its manifest; "
+                "re-export with save_inference_model(..., "
+                "serve_meta=serve_metadata(model))")
+        model = CausalLM(
+            vocab=meta["vocab"], model_dim=meta["model_dim"],
+            num_heads=meta["num_heads"], num_layers=meta["num_layers"],
+            ffn_dim=meta["ffn_dim"], dropout=0.0, max_len=meta["max_len"],
+            tie_embeddings=meta["tie_embeddings"],
+            fused_qkv=meta["fused_qkv"],
+            num_kv_heads=meta["num_kv_heads"], device=device)
+        load_jax_params(model, load_checkpoint(
+            os.path.join(model_dir, "params")))
+        engine_kwargs.setdefault("max_seq_len", meta["max_len"])
+        return cls(model, device=device, **engine_kwargs)
 
     # -- telemetry --------------------------------------------------------
     def _register_metrics(self) -> None:
@@ -210,6 +267,13 @@ class ServeEngine:
             "prefix cache")
         self._m_shared = m.gauge(
             "ptpu_kv_shared_blocks", "Blocks with refcount > 1")
+        self._m_compressed = m.gauge(
+            "ptpu_kv_compressed_blocks",
+            "Prefix blocks resident in the device int8 compressed pool")
+        self._m_pool_eff = m.gauge(
+            "ptpu_kv_pool_effective_bytes",
+            "fp-equivalent KV bytes the device holds: the fp pool plus "
+            "every compressed entry at the fp bytes it stands in for")
         self._m_queue_depth = m.gauge(
             "ptpu_sched_queue_depth", "Requests waiting for admission")
         self._m_running = m.gauge(
@@ -302,6 +366,12 @@ class ServeEngine:
         if rows is None:
             return False
         self.steps += 1
+        # publish the coldness clock, then sweep: blocks the plan just
+        # admitted are hot, so only idle prefix content stages quantize
+        # lanes for this step's _flush_compress
+        self.cache.step_now = self.steps
+        if self.cache.compress_enabled:
+            self.cache.compress_cold()
         n_chunks, n_decodes, chunk_tokens = self._step_mixed(rows)
         self.peak_occupancy = max(self.peak_occupancy,
                                   self.cache.occupancy())
@@ -314,6 +384,8 @@ class ServeEngine:
         self._m_occ.set(self.cache.occupancy())
         self._m_hit.set(self.cache.hit_rate())
         self._m_shared.set(self.cache.shared_blocks)
+        self._m_compressed.set(float(self.cache.compressed_resident))
+        self._m_pool_eff.set(float(self.cache.effective_pool_bytes()))
         self._m_queue_depth.set(self.scheduler.queue_depth)
         self._m_running.set(len(self.scheduler.running))
         self._m_decode_rows.set(n_decodes)
@@ -357,6 +429,57 @@ class ServeEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _lanes(self, jobs, i: int) -> "tuple[torch.Tensor, torch.Tensor]":
+        """Fixed-width (_TIER_LANES) (fp block, int8 slot) index tensors
+        of jobs[i:i + _TIER_LANES]; unused lanes pair scratch block 0
+        with scratch slot 0."""
+        blocks = np.zeros((_TIER_LANES,), np.int64)
+        slots = np.zeros((_TIER_LANES,), np.int64)
+        for j, (b, s) in enumerate(jobs[i:i + _TIER_LANES]):
+            blocks[j], slots[j] = b, s
+        return self._to_device(blocks), self._to_device(slots)
+
+    def _tier_pools(self):
+        """(fp pool, int8 pool, scales) for every layer's k, then v."""
+        for (kp, vp), (kq, vq), (ks, vs) in zip(
+                self.cache.pools, self.cache.qpools, self.cache.qscales):
+            yield kp, kq, ks
+            yield vp, vq, vs
+
+    def _flush_compress(self) -> None:
+        """Quantize staged cold fp blocks into the int8 pools — FIRST
+        among the pre-step flushes, so the quantize lanes read every src
+        block before a promote or COW copy can overwrite it. Pad lanes
+        quantize fp scratch block 0 into int8 scratch slot 0."""
+        jobs = self.cache.drain_compress()
+        with torch.inference_mode():
+            for i in range(0, len(jobs), _TIER_LANES):
+                src, dst = self._lanes(jobs, i)
+                for pool, qpool, scales in self._tier_pools():
+                    q8, sc = quantize_block(pool.index_select(0, src))
+                    qpool.index_copy_(0, dst, q8)
+                    scales.index_copy_(0, dst, sc)
+
+    def _flush_promote(self) -> None:
+        """Dequantize staged compressed-tier hits into their claimed fp
+        blocks — after _flush_compress (a promote may read a slot the
+        same plan just filled) and before COW copies and the step. Pad
+        lanes write int8 scratch slot 0 into fp scratch block 0."""
+        jobs = self.cache.drain_promotes()
+        with torch.inference_mode():
+            for i in range(0, len(jobs), _TIER_LANES):
+                dst, src = self._lanes(jobs, i)
+                for pool, qpool, scales in self._tier_pools():
+                    pool.index_copy_(0, dst, dequantize_block(
+                        qpool.index_select(0, src),
+                        scales.index_select(0, src), pool.dtype))
+
+    @property
+    def kv_direct_int8(self) -> bool:
+        """Whether this engine's step reads int8-resident blocks in place
+        (no promote round trip)."""
+        return self.cache.compress_enabled and self.cache.direct_read_enabled
+
     def _step_mixed(self, rows: List[StepRow]) -> "tuple[int, int, int]":
         """Pack the plan's rows — decode rows AND prefill chunks — into
         the flat ragged layout and run ONE step. Row i's token window
@@ -366,6 +489,8 @@ class ServeEngine:
         max_batch_size backs pad tiles (ctx 1, scratch table). For a
         decode row the window is [seq_len, seq_len+1) of req.tokens —
         the last generated token at its next-token position."""
+        self._flush_compress()
+        self._flush_promote()
         self._flush_cow()
         t_flat, tq, nt = self.flat_tokens, self.tile_q, self.num_tiles
         b = self.max_batch_size
@@ -406,7 +531,8 @@ class ServeEngine:
         dev = [self._to_device(a) for a in operands]
         with torch.inference_mode():
             logits = self.model.ragged_step_paged(
-                dev[0], dev[1], self.cache.pools, *dev[2:])
+                dev[0], dev[1], self.cache.pools, *dev[2:],
+                qpools=self.cache.qpools, qscales=self.cache.qscales)
             logits = logits.float().cpu().numpy()
         chunks = [w for w in rows if not w.decode]
         decodes = [w for w in rows if w.decode]

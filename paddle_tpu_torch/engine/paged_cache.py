@@ -1,6 +1,6 @@
 """PagedKVCache: refcounted block-pool KV storage with prefix sharing
-(port of paddle_tpu/engine/paged_cache.py; the host-tier, in-device
-int8 compression and tensor-parallel branches are not ported yet).
+(port of paddle_tpu/engine/paged_cache.py; the host-tier and
+tensor-parallel branches are not ported yet).
 
 Instead of one dense [B, Tmax, Hkv, hd] cache per batch slot, KV state
 lives in ONE pool of fixed-size token blocks per layer
@@ -24,6 +24,23 @@ block returns to the free list but keeps its prefix-index entry, so a
 later request with the same prefix revives it. The entry is evicted
 lazily, only when `_pop_free` hands the block out for fresh content.
 
+In-device compressed tier: with `compress_blocks > 0` the cache also
+owns a parallel int8 block pool plus per-block k/v scales
+(`qpools`/`qscales`, slot 0 scratch like block 0). Cold committed
+prefix blocks quantize into it — proactively while still fp-resident
+(`compress_cold`: the fp copy and index entry stay, so fp hits stay
+byte-exact), and as the first rung of the demotion ladder when the
+pool recycles a cached-free block or a sequence preempts. With no host
+tier ported, the ladder is device-fp -> device-int8 -> gone: a
+compressed entry evicted to make room is dropped and counted in
+`compress_spills`. A prefix hit on a compressed entry is read IN PLACE
+by default: the block table carries the bias-encoded slot -(slot+1)
+and the step's mixed attention kernel dequantizes it. It claims an fp
+block and stages a dequantize PROMOTION instead when `promote_hits`
+says so, or when it is the prompt's final block (that block takes the
+last token's write, and writes target fp blocks only). The quantize
+and dequantize run as the engine's fixed-lane flushes.
+
 Host/device split: this class is the HOST-side allocator + bookkeeping.
 The device-side pools are torch tensors in `self.pools`, allocated
 with zeros (never torch.empty: masked attention lanes multiply p = 0
@@ -36,13 +53,17 @@ garbage k/v there, so a dummy row can never corrupt a live sequence.
 
 from __future__ import annotations
 
-from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
+
+# a committed block untouched this many steps is cold enough for the
+# proactive quantize sweep (compress_cold)
+COMPRESS_IDLE_STEPS = 4
 
 
 class CacheExhausted(Exception):
@@ -62,9 +83,14 @@ class PagedKVCache:
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
                  enable_prefix_cache: bool = True,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 compress_blocks: int = 0, promote_hits: int = 0):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is scratch)")
+        if compress_blocks < 0:
+            raise ValueError(f"compress_blocks {compress_blocks} < 0")
+        if promote_hits < 0:
+            raise ValueError(f"promote_hits {promote_hits} < 0")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.num_kv_heads = num_kv_heads
@@ -77,6 +103,49 @@ class PagedKVCache:
             (torch.zeros(shape, dtype=dtype, device=self.device),
              torch.zeros(shape, dtype=dtype, device=self.device))
             for _ in range(num_layers)]
+        # the int8 tier: pools of compress_blocks + 1 slots (slot 0 is
+        # scratch, which the fixed-lane flushes pad with) and per-slot
+        # k/v scales, written in place by the engine's flushes. Zeros
+        # and ones, like the fp pools: never uninitialised memory.
+        self.compress_blocks = int(compress_blocks)
+        self._compress_on = self.compress_blocks > 0 and enable_prefix_cache
+        self.qpools: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.qscales: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        if self._compress_on:
+            nq = self.compress_blocks + 1
+            qshape = (nq, block_size, num_kv_heads, head_dim)
+            self.qpools = [
+                (torch.zeros(qshape, dtype=torch.int8, device=self.device),
+                 torch.zeros(qshape, dtype=torch.int8, device=self.device))
+                for _ in range(num_layers)]
+            self.qscales = [
+                (torch.ones(nq, dtype=torch.float32, device=self.device),
+                 torch.ones(nq, dtype=torch.float32, device=self.device))
+                for _ in range(num_layers)]
+        # compressed-tier bookkeeping (host-side): slot free list,
+        # content-keyed LRU index (OrderedDict end = hottest), reverse
+        # map, staged fixed-lane traffic, and the last-hit clock the
+        # coldness policy orders by (the engine publishes step_now each
+        # step)
+        self._cfree = deque(range(1, self.compress_blocks + 1))
+        self._cindex: "OrderedDict[tuple, int]" = OrderedDict()
+        self._cslot_key: Dict[int, tuple] = {}
+        self._pending_compress: List[Tuple[int, int]] = []  # (fp blk, slot)
+        self._pending_promotes: List[Tuple[int, int]] = []  # (fp blk, slot)
+        self._promote_slots: Set[int] = set()
+        # direct reads: promote_hits 0 never promotes, 1 always promotes,
+        # N > 1 promotes a key once it has been hit N times
+        self.promote_hits = int(promote_hits)
+        self._cslot_refs: Dict[int, int] = {}     # slot -> live direct readers
+        self._chits: Dict[tuple, int] = {}        # key -> compressed-hit count
+        self._last_hit: Dict[int, int] = {}       # block -> step
+        self.step_now = 0
+        self.compressed_total = 0         # blocks quantized in-device
+        self.promoted_total = 0           # compressed blocks re-inflated
+        self.compress_spills = 0          # compressed entries evicted (gone)
+        self.compress_hit_tokens = 0      # prompt tokens served int8
+        self.direct_reads = 0             # int8 blocks read in place
+        self.direct_read_tokens = 0       # prompt tokens they covered
         # block 0 reserved for padded/dummy rows — never handed out
         self._free = deque(range(1, num_blocks))
         self._tables: Dict[int, List[int]] = {}
@@ -114,6 +183,18 @@ class PagedKVCache:
         self._c_hit_toks = reg.counter(
             "ptpu_kv_hit_tokens_total",
             "Prompt tokens served from the prefix cache")
+        self._c_compress = reg.counter(
+            "ptpu_kv_compress_total",
+            "Cold prefix blocks quantized into the device int8 pool")
+        self._c_promote = reg.counter(
+            "ptpu_kv_promote_total",
+            "Compressed blocks dequantized back into fp on a prefix hit")
+        self._c_direct_reads = reg.counter(
+            "ptpu_kv_direct_int8_reads_total",
+            "Int8-resident blocks read in place by the ragged step")
+        self._c_direct_toks = reg.counter(
+            "ptpu_kv_direct_int8_tokens_total",
+            "Prompt tokens served by direct int8 reads")
 
     # -- capacity ---------------------------------------------------------
     @property
@@ -147,14 +228,125 @@ class PagedKVCache:
         """Take a block for FRESH content, lazily evicting any stale
         cached-free index entry it still carries (frees append to the
         RIGHT and this pops from the LEFT, so the longest-freed cached
-        content is evicted first)."""
+        content is evicted first). With the int8 tier on, the content
+        is demoted before the entry dies."""
         block = self._free.popleft()
         key = self._key_of.pop(block, None)
         if key is not None and self._index.get(key) == block:
+            self._demote_block(block, key)
             del self._index[key]
             self.cached_free_evictions += 1
             self._c_evict.inc()
+        self._last_hit.pop(block, None)
         return block
+
+    def _demote_block(self, block: int, key: tuple) -> bool:
+        """Ship one committed block's KV one rung down the ladder,
+        device-fp -> device-int8, under its content key: stage a
+        fixed-lane quantize the engine flushes before anything
+        overwrites the block. A no-op when the int8 tier already holds
+        the key (the key IS the content, so that copy is the truth) or
+        no slot can be freed. The JAX package's next rung, its host
+        tier, is not ported."""
+        if not self._compress_on or key in self._cindex:
+            return False
+        slot = self._take_cslot()
+        if slot is None:
+            return False
+        self._stage_compress(block, key, slot)
+        return True
+
+    # -- in-device compressed tier ----------------------------------------
+    def _stage_compress(self, block: int, key: tuple, slot: int) -> None:
+        """Queue one fp block's quantize into int8 slot `slot`. The
+        payload is READ at flush time, which is safe against every
+        same-plan writer: promotions and COW copies flush after
+        compressions, and the step's scatters land after that."""
+        self._pending_compress.append((block, slot))
+        self._cindex[key] = slot           # inserted hottest (end)
+        self._cslot_key[slot] = key
+        self.compressed_total += 1
+        self._c_compress.inc()
+
+    def _take_cslot(self) -> Optional[int]:
+        """A free int8 slot, or the coldest evictable compressed entry's
+        slot after spilling that entry. Slots with in-flight traffic are
+        not evictable: a pending-compress dst holds no payload yet, a
+        pending-promote src is about to be read, and a slot with live
+        direct readers is part of a running sequence's table. None when
+        nothing can move."""
+        if self._cfree:
+            return self._cfree.popleft()
+        busy = {s for _, s in self._pending_compress}
+        busy |= self._promote_slots
+        busy |= set(self._cslot_refs)
+        for key, slot in self._cindex.items():     # coldest first
+            if slot in busy:
+                continue
+            self._spill_cslot(key, slot)
+            del self._cindex[key]
+            del self._cslot_key[slot]
+            self._chits.pop(key, None)   # warm-up clock dies with the entry
+            return slot
+        return None
+
+    def _spill_cslot(self, key: tuple, slot: int) -> None:
+        """An evicted compressed entry leaves the device. The JAX
+        package ships its int8 payload into the host tier; with no host
+        tier (the only case the port has) the entry is dropped and
+        counted."""
+        self.compress_spills += 1
+
+    def compress_cold(self) -> int:
+        """Proactive cold sweep (engine-driven, once per step): quantize
+        the coldest committed prefix blocks — cached-free AND
+        refcount-shared — into FREE int8 slots. Coldness is LRU by
+        last-hit step; a block must have sat untouched >=
+        COMPRESS_IDLE_STEPS.
+        The fp copy and its index entry STAY (committed full blocks are
+        content-immutable), so fp hits remain byte-exact. It never
+        spills a compressed entry to make room. Returns blocks
+        staged."""
+        if not self._compress_on or not self._cfree:
+            return 0
+        # a staged promote dst holds no real content until its flush
+        inflight = {b for b, _ in self._pending_promotes}
+        cands = sorted(
+            (self._last_hit.get(b, 0), b)
+            for b, key in self._key_of.items()
+            if key not in self._cindex and b not in inflight
+            and self.step_now - self._last_hit.get(b, 0)
+            >= COMPRESS_IDLE_STEPS)
+        staged = 0
+        for _, b in cands:
+            if not self._cfree:
+                break
+            self._stage_compress(b, self._key_of[b], self._cfree.popleft())
+            staged += 1
+        return staged
+
+    def demote_sequence(self, seq_id: int) -> int:
+        """The preemption path: copy a live sequence's committed full
+        blocks one rung down (into the int8 tier) right before
+        free_sequence, so re-admission reads or promotes them instead of
+        re-prefilling. Returns blocks demoted."""
+        if not self._compress_on:
+            return 0
+        table = self._tables.get(seq_id)
+        if table is None:
+            return 0
+        self._register_full_blocks(seq_id)
+        toks = self._tokens[seq_id]
+        bs = self.block_size
+        count = 0
+        for bi in range(self._committed.get(seq_id, 0) // bs):
+            b = table[bi]
+            if b < 0:
+                continue        # direct-read entry: already int8-resident
+            key = self._key_of.get(b) or tuple(toks[:(bi + 1) * bs])
+            if self._demote_block(b, key):
+                count += 1
+        return count
 
     def _match_prefix(self, tokens: Sequence[int]) -> List[int]:
         """Longest run of committed full blocks matching `tokens`' head
@@ -186,20 +378,37 @@ class PagedKVCache:
     def alloc_sequence(self, seq_id: int, tokens: Sequence[int],
                        count_stats: bool = True) -> int:
         """Reserve blocks for a sequence's prompt, reusing committed
-        prefix blocks from the index. Returns the number of CACHED
-        tokens (KV already in the pool — the engine prefills only the
-        suffix). A full-prompt hit is capped at n-1 so the last token
-        always recomputes (its logits seed sampling); that write lands
-        inside a shared block and COWs it. Raises CacheExhausted
-        (allocating nothing) when the free list is short.
-        `count_stats=False` leaves hit_tokens/prompt_tokens untouched:
-        a preemption re-admission re-hits its own just-committed blocks
-        and would otherwise inflate hit_rate."""
+        prefix blocks from the index and, past them, the int8 tier.
+        Returns the number of CACHED tokens (KV already on the device —
+        the engine prefills only the suffix). A full-prompt hit is
+        capped at n-1 so the last token always recomputes (its logits
+        seed sampling); that write lands inside a shared block and COWs
+        it. Raises CacheExhausted (allocating nothing) when the free
+        list is short. `count_stats=False` leaves hit_tokens/
+        prompt_tokens untouched: a preemption re-admission re-hits its
+        own just-committed blocks and would otherwise inflate
+        hit_rate."""
         if seq_id in self._tables:
             raise ValueError(f"sequence {seq_id} already allocated")
         n = len(tokens)
+        bs = self.block_size
         matched = self._match_prefix(tokens)
-        need = self.blocks_for(n) - len(matched)
+        # walk PAST the fp match into the int8 tier. A hit is read in
+        # place (bias-encoded slot in the table) unless promote_hits says
+        # to promote it, or it is the prompt's FINAL block, whose write
+        # (the capped last token) must land in a writable fp block
+        chits: List[Tuple[tuple, int, bool]] = []   # (key, slot, promote?)
+        if self._compress_on:
+            for end in range((len(matched) + 1) * bs, n + 1, bs):
+                key = tuple(tokens[:end])
+                slot = self._cindex.get(key)
+                if slot is None:
+                    break
+                hits = self._chits.get(key, 0) + 1
+                chits.append((key, slot,
+                              end >= n or 0 < self.promote_hits <= hits))
+        n_direct = sum(1 for _, _, p in chits if not p)
+        need = self.blocks_for(n) - len(matched) - n_direct
         revive = [b for b in matched if b not in self._refs]
         if need + len(revive) > len(self._free):
             raise CacheExhausted(
@@ -212,14 +421,51 @@ class PagedKVCache:
                 self._refs[b] = 1
                 self.cached_free_revivals += 1
                 self._c_revive.inc()
-        fresh = [self._pop_free() for _ in range(need)]
+            self._last_hit[b] = self.step_now
+        # pin every compressed hit's slot FIRST: the _pop_free calls
+        # below can demote dying cached-free entries into a full int8
+        # pool, which would otherwise spill the very slots this table is
+        # about to read or promote from
+        mid_blocks: List[int] = []      # compressed hits, in table order
+        n_promoted = 0
+        if chits:
+            self._promote_slots.update(s for _, s, p in chits if p)
+            for _, s, p in chits:
+                if not p:
+                    self._cslot_refs[s] = self._cslot_refs.get(s, 0) + 1
+            for key, slot, p in chits:
+                self._chits[key] = self._chits.get(key, 0) + 1
+                self._cindex.move_to_end(key)        # LRU touch: hottest
+                if not p:
+                    mid_blocks.append(-(slot + 1))
+                    self.direct_reads += 1
+                    self._c_direct_reads.inc()
+                    continue
+                b = self._pop_free()
+                self._refs[b] = 1
+                mid_blocks.append(b)
+                n_promoted += 1
+                self._pending_promotes.append((b, slot))
+                self._last_hit[b] = self.step_now
+                if key not in self._index and b not in self._key_of:
+                    self._index[key] = b
+                    self._key_of[b] = key
+                self.promoted_total += 1
+                self._c_promote.inc()
+        fresh = [self._pop_free() for _ in range(need - n_promoted)]
         for b in fresh:
             self._refs[b] = 1
-        self._tables[seq_id] = matched + fresh
+            self._last_hit[b] = self.step_now
+        self._tables[seq_id] = matched + mid_blocks + fresh
         self._lens[seq_id] = n
         self._tokens[seq_id] = list(tokens)
-        cached = min(len(matched) * self.block_size, n - 1)
+        cached = min((len(matched) + len(chits)) * bs, n - 1)
         self._committed[seq_id] = cached
+        if chits:
+            self.compress_hit_tokens += max(0, cached - len(matched) * bs)
+        if n_direct:
+            self.direct_read_tokens += n_direct * bs
+            self._c_direct_toks.inc(n_direct * bs)
         if count_stats:
             self.hit_tokens += cached
             self.prompt_tokens += n
@@ -238,6 +484,14 @@ class PagedKVCache:
         bs = self.block_size
         for bi in range(start // bs, (max(end, start + 1) - 1) // bs + 1):
             old = table[bi]
+            if old < 0:
+                # unreachable by construction: writes land at positions
+                # >= cached, and alloc_sequence promotes the one
+                # compressed hit a capped full-prompt write can touch.
+                # Fail loudly rather than corrupt a shared int8 slot.
+                raise RuntimeError(
+                    f"copy-on-write reached int8-resident entry {old} "
+                    f"(seq {seq_id}, block index {bi})")
             if self._refs[old] <= 1:
                 continue
             if not self._free:
@@ -255,6 +509,22 @@ class PagedKVCache:
         device pools (src block -> dst block, every layer) before the
         next step reads or writes the dst blocks."""
         out, self._pending_copies = self._pending_copies, []
+        return out
+
+    def drain_compress(self) -> List[Tuple[int, int]]:
+        """Staged (fp block, int8 slot) quantizations. The engine MUST
+        flush these FIRST — before promotions and COW copies — so the
+        quantize lanes read every src block ahead of any same-plan
+        writer reusing it."""
+        out, self._pending_compress = self._pending_compress, []
+        return out
+
+    def drain_promotes(self) -> List[Tuple[int, int]]:
+        """Staged (fp block, int8 slot) dequantize promotions, flushed
+        AFTER compressions (a promote may read a slot the same plan just
+        filled) and BEFORE COW copies and the step."""
+        out, self._pending_promotes = self._pending_promotes, []
+        self._promote_slots = set()
         return out
 
     def commit_prefill(self, seq_id: int, upto: int) -> None:
@@ -275,6 +545,8 @@ class PagedKVCache:
         toks = self._tokens[seq_id]
         for bi in range(self._committed[seq_id] // bs):
             block = table[bi]
+            if block < 0:
+                continue    # int8-resident: indexed by _cindex, not here
             if block in self._key_of:
                 continue                    # already indexed (maybe shared)
             key = tuple(toks[:(bi + 1) * bs])
@@ -304,6 +576,7 @@ class PagedKVCache:
         for _ in range(new_need):
             block = self._pop_free()
             self._refs[block] = 1
+            self._last_hit[block] = self.step_now
             table.append(block)
         return table[pos // bs] * bs + pos % bs
 
@@ -330,15 +603,43 @@ class PagedKVCache:
         self._committed.pop(seq_id, None)
         freed_set = set()
         for b in blocks:
+            if b < 0:
+                # direct-read entry: unpin the int8 slot; its payload
+                # stays resident in _cindex and becomes spillable again
+                # once its last reader drops
+                slot = -b - 1
+                left = self._cslot_refs.get(slot, 0) - 1
+                if left > 0:
+                    self._cslot_refs[slot] = left
+                else:
+                    self._cslot_refs.pop(slot, None)
+                continue
             self._refs[b] -= 1
             if self._refs[b] == 0:
                 del self._refs[b]
                 self._free.append(b)
+                # in live use until this step: its coldness clock starts
+                self._last_hit[b] = self.step_now
                 freed_set.add(b)
         if freed_set and self._pending_copies:
             self._pending_copies = [
                 (s, d) for s, d in self._pending_copies
                 if d not in freed_set]
+        if freed_set and self._pending_promotes:
+            # cancel-mid-promotion: a freed dst block may be handed out
+            # again at once, and a stale dequantize flushing later would
+            # clobber the new owner's KV. The compressed entry still
+            # holds the payload; a re-request promotes it anew.
+            stale = [b for b, _ in self._pending_promotes if b in freed_set]
+            if stale:
+                self._pending_promotes = [
+                    (b, s) for b, s in self._pending_promotes
+                    if b not in freed_set]
+                self._promote_slots = {s for _, s in self._pending_promotes}
+                for b in stale:
+                    key = self._key_of.pop(b, None)
+                    if key is not None and self._index.get(key) == b:
+                        del self._index[key]
         return len(freed_set)
 
     # -- views for the step ----------------------------------------------
@@ -356,12 +657,50 @@ class PagedKVCache:
 
     def padded_table(self, seq_id: int, max_blocks: int) -> List[int]:
         """Block table right-padded with scratch block 0 to the fixed
-        width of the step's operands."""
+        width of the step's operands (int8-resident entries stay
+        bias-encoded)."""
         table = self._tables[seq_id]
         if len(table) > max_blocks:
             raise ValueError(f"sequence {seq_id} spans {len(table)} blocks "
                              f"> max {max_blocks}")
         return table + [0] * (max_blocks - len(table))
+
+    def compressed_keys(self, limit: int = 512) -> List[tuple]:
+        """Most recently touched compressed-tier keys (hottest last)."""
+        keys = list(self._cindex.keys())
+        return keys[-limit:] if limit and len(keys) > limit else keys
+
+    @property
+    def compress_enabled(self) -> bool:
+        """Whether the in-device int8 tier is active (budget > 0 and
+        prefix caching on)."""
+        return self._compress_on
+
+    @property
+    def direct_read_enabled(self) -> bool:
+        """Whether compressed hits are read in place by the mixed step
+        (promote_hits != 1; 1 restores always-promote)."""
+        return self._compress_on and self.promote_hits != 1
+
+    @property
+    def compressed_resident(self) -> int:
+        return len(self._cindex)
+
+    @property
+    def compress_free_slots(self) -> int:
+        """Unused int8 slots: the scheduler's victim costing caps the
+        cheap-rung credit by this."""
+        return len(self._cfree)
+
+    def effective_pool_bytes(self) -> int:
+        """fp-equivalent bytes of UNIQUE KV the device holds: the fp pool
+        plus compressed entries whose content lives ONLY in the int8
+        tier (a proactively compressed block keeps its fp copy, and is
+        counted once)."""
+        blk = (2 * self.block_size * self.num_kv_heads * self.head_dim
+               * self.dtype.itemsize * len(self.pools))
+        uniq = sum(1 for k in self._cindex if k not in self._index)
+        return (self.num_blocks - 1 + uniq) * blk
 
     # -- observability ----------------------------------------------------
     def hit_rate(self) -> float:
@@ -369,7 +708,7 @@ class PagedKVCache:
         return self.hit_tokens / max(1, self.prompt_tokens)
 
     def stats(self) -> Dict[str, float]:
-        return {
+        out = {
             "hit_tokens": self.hit_tokens,
             "prompt_tokens": self.prompt_tokens,
             "hit_rate": round(self.hit_rate(), 4),
@@ -380,10 +719,22 @@ class PagedKVCache:
             "used_blocks": self.used_blocks,
             "occupancy": round(self.occupancy(), 4),
         }
+        if self._compress_on:
+            out["compressed_blocks"] = len(self._cindex)
+            out["compress_total"] = self.compressed_total
+            out["promote_total"] = self.promoted_total
+            out["compress_spills"] = self.compress_spills
+            out["compress_hit_tokens"] = self.compress_hit_tokens
+            out["direct_int8_reads"] = self.direct_reads
+            out["direct_int8_tokens"] = self.direct_read_tokens
+        return out
 
     def reset_stats(self) -> None:
         self.hit_tokens = self.prompt_tokens = self.cow_copies = 0
         self.cached_free_evictions = self.cached_free_revivals = 0
+        self.compressed_total = self.promoted_total = 0
+        self.compress_spills = self.compress_hit_tokens = 0
+        self.direct_reads = self.direct_read_tokens = 0
 
     def assert_quiesced(self) -> None:
         """Leak check: with no live sequences every refcount must be
@@ -394,6 +745,22 @@ class PagedKVCache:
             raise RuntimeError(f"live sequences: {list(self._tables)}")
         if self._refs:
             raise RuntimeError(f"leaked refcounts: {self._refs}")
+        if self._pending_compress:
+            raise RuntimeError(
+                f"{len(self._pending_compress)} compress lanes never "
+                "flushed")
+        if self._pending_promotes:
+            raise RuntimeError(
+                f"{len(self._pending_promotes)} promote lanes never "
+                "flushed")
+        if self._cslot_refs:
+            raise RuntimeError(
+                f"leaked direct-read slot pins: {self._cslot_refs}")
+        if self._compress_on and \
+                len(self._cfree) + len(self._cindex) != self.compress_blocks:
+            raise RuntimeError(
+                f"compressed-slot leak: {len(self._cfree)} free + "
+                f"{len(self._cindex)} resident != {self.compress_blocks}")
         if len(self._free) != self.num_blocks - 1:
             raise RuntimeError(
                 f"free list {len(self._free)} != {self.num_blocks - 1}")

@@ -240,22 +240,54 @@ class Scheduler:
                 self.preempt(victim)
         return False
 
+    def _preempt_cost(self, req: Request) -> float:
+        """Modeled cost of evicting `req` and bringing it back, with the
+        in-device int8 tier on. Committed FULL blocks demote into free
+        int8 slots and come back as on-device reads (direct, rate 0.1)
+        or promote scatters (rate 0.25), linear in their tokens; blocks
+        beyond the free slots are dropped (no host tier), so they
+        re-prefill like the uncommitted tail: attention over the
+        growing context makes that ~n^2."""
+        n = len(req.tokens)
+        bs = self.cache.block_size
+        full = (n // bs) * bs
+        tail = n - full
+        cheap = min(full, self.cache.compress_free_slots * bs)
+        rest = full - cheap
+        rate = 0.1 if self.cache.direct_read_enabled else 0.25
+        return float(cheap * rate + rest * rest + tail * tail)
+
     def _pick_victim(self, keep: Optional[Request]) -> Optional[Request]:
         """The running request (other than `keep`) with the MOST
         deadline slack; without deadlines every slack is +inf and the
-        choice degrades to the last admitted. None when nothing else is
-        left to evict."""
+        choice degrades to the last admitted. With the int8 tier on,
+        equal-slack candidates are split by the demote-vs-recompute cost
+        model (_preempt_cost: the cheapest round trip loses its
+        blocks). None when nothing else is left to evict."""
         best: Optional[Request] = None
+        if not self.cache.compress_enabled:
+            for r in self.running:      # later index wins ties (stable max)
+                if r is not keep and (best is None
+                                      or r.deadline >= best.deadline):
+                    best = r
+            return best
+        best_cost = 0.0
         for r in self.running:          # later index wins ties (stable max)
-            if r is not keep and (best is None
-                                  or r.deadline >= best.deadline):
-                best = r
+            if r is keep:
+                continue
+            cost = self._preempt_cost(r)
+            if (best is None or r.deadline > best.deadline
+                    or (r.deadline == best.deadline and cost <= best_cost)):
+                best, best_cost = r, cost
         return best
 
     def preempt(self, req: Request) -> None:
         """Evict by recompute: drop block refs, fold generated tokens
         into the prompt, and requeue at the FRONT so it re-prefills
-        first."""
+        first. With the int8 tier on, the committed blocks demote into
+        it first, so re-admission reads them back instead of
+        recomputing them."""
+        self.cache.demote_sequence(req.req_id)
         self.cache.free_sequence(req.req_id)
         self.running.remove(req)
         req.preempt_carry += len(req.generated)

@@ -6,7 +6,8 @@ Each kernel is one CUDA C++ source under `kernels/csrc/` with a plain
 loaded with ctypes — no PyTorch headers, so a build takes seconds.
 
 Libraries land in `build/paddle_tpu_torch/` at the repository root,
-named by a hash of the source and the flags, at first use: a checkout
+named by a hash of the source, the shared headers (`csrc/*.cuh`) and
+the flags, at first use: a checkout
 builds its own kernels, and an edit to a source builds anew. Sources
 build in parallel, one nvcc process each, all started together. A
 failed compile raises with nvcc's output; the `-Xptxas -v` report
@@ -36,6 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 # kernel name -> its source under csrc/
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
+    "paged_attention": "paged_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,6 +72,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

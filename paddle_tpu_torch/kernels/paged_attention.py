@@ -1,6 +1,13 @@
-"""Ragged paged attention: ONE call for a serve step's mixed batch of
-decode rows and prefill chunks (port of
-paddle_tpu/kernels/paged_attention.py:296-646).
+"""Paged attention of the port (port of
+paddle_tpu/kernels/paged_attention.py:108-162, 296-646): attention
+whose K/V is gathered through per-sequence block tables from block
+pools [NB, BS, Hkv, D].
+
+Single-token decode (`paged_attention`, the split path's decode step)
+and chunked prefill (`paged_prefill_attention`, plain only, as JAX
+left it to XLA) take one batch row per sequence; the serve engine's
+step instead takes ONE call for its mixed batch of decode rows and
+prefill chunks (`ragged_paged_attention`), described below.
 
 The serve engine packs every row of a step — decode rows (one query
 token) and prefill chunks (a window of C query tokens) — into a single
@@ -23,15 +30,23 @@ Masking is absolute-position causal AND context-bounded
 (kv_pos <= q_pos, kv_pos < ctx), so decode rows, mid-prompt chunks and
 pad queries all fall out of one rule.
 
-Two implementations with one contract:
+With the engine's in-device int8 tier on, the call also takes int8
+pools kq/vq [NQ, BS, Hkv, D] and per-block f32 scales [NQ], and the
+block table is bias-encoded: id >= 0 is an fp block, id < 0 is int8
+slot -id-1, dequantized in place exactly as `dequantize_block` does.
 
-- `ragged_paged_attention_reference` — the plain PyTorch version: dense
-  gather + masked `reference_attention`. The tests use it, and the
-  wrapper runs it for tensors that lie on the CPU.
-- the hand-written CUDA kernel `kernels/csrc/ragged_paged_attention.cu`
-  (which replaces the TPU kernel `_ragged_kernel`,
-  paddle_tpu/kernels/paged_attention.py:428). For CUDA tensors the
-  wrapper launches it or raises; it never falls back.
+Each kernel has two implementations with one contract:
+
+- a plain PyTorch version (`*_reference`): dense gather + masked
+  `reference_attention`. The tests use it, and the wrappers run it for
+  tensors that lie on the CPU.
+- a hand-written CUDA kernel under kernels/csrc/. For CUDA tensors the
+  wrapper launches it or raises; it never falls back:
+  - `ragged_paged_attention.cu` `ptt_ragged_paged_attention` replaces
+    `_ragged_kernel` (paddle_tpu/kernels/paged_attention.py:428), and
+    `ptt_ragged_paged_attention_mixed` replaces `_ragged_kernel_mixed`
+    (:462);
+  - `paged_attention.cu` replaces `_paged_kernel` (:173).
 """
 
 from __future__ import annotations
@@ -43,16 +58,81 @@ import torch
 
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels.attention import reference_attention
+from paddle_tpu_torch.quant.int8_compute import RQMAX
 
 _KERNEL = "ragged_paged_attention"
+_PAGED_KERNEL = "paged_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM_BYTES = 232448          # one CTA's dynamic shared memory on H100
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables,
+                              context_lens, scale: Optional[float] = None):
+    """Plain single-token decode: gather blocks dense, mask past
+    context_len, run reference_attention. q: [B, H, D]; pools:
+    [NB, BS, Hkv, D]; block_tables: [B, MB] int32; context_lens: [B]
+    int32 -> [B, H, D] in q's dtype."""
+    b, h, d = q.shape
+    nb, bs, hkv, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pool[bt].reshape(b, mb * bs, hkv, d)
+    v = v_pool[bt].reshape(b, mb * bs, hkv, d)
+    mask = (torch.arange(mb * bs, device=q.device)[None, :]
+            < context_lens.long()[:, None])[:, None, None, :]
+    return reference_attention(q[:, None].to(k.dtype), k, v, mask=mask,
+                               scale=scale)[:, 0].to(q.dtype)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, context_lens,
+                            q_positions, scale: Optional[float] = None):
+    """Chunked-prefill attention through the block table, plain PyTorch
+    only (JAX left it to XLA, with no Pallas kernel): a CHUNK of
+    queries per sequence attends, causally, over the prefix KV already
+    in the pool AND the chunk's own KV (the caller scatters the chunk's
+    k/v into the pool first).
+
+    q: [B, C, H, D]; q_positions: [B, C] int32 absolute position of
+    each query; pools [NB, BS, Hkv, D]; block_tables [B, MB];
+    context_lens [B] int32, each row's chunk-end position (1 for pad
+    rows). A gathered slot's position IS its index in table order, so
+    the mask is kv_pos <= q_pos AND kv_pos < ctx. Returns
+    [B, C, H, D]."""
+    b, c, h, d = q.shape
+    nb, bs, hkv, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pool[bt].reshape(b, mb * bs, hkv, d)
+    v = v_pool[bt].reshape(b, mb * bs, hkv, d)
+    kv_pos = torch.arange(mb * bs, device=q.device)
+    mask = ((kv_pos[None, None, :] <= q_positions.long()[:, :, None])
+            & (kv_pos[None, None, :]
+               < context_lens.long()[:, None, None]))
+    return reference_attention(q.to(k.dtype), k, v, mask=mask[:, None],
+                               scale=scale).to(q.dtype)
+
+
+def _gather_mixed(pool, q_pool, scales, ids):
+    """Dense mixed-tier gather for the plain version: fp pool rows where
+    the bias-encoded table entry is >= 0, per-block dequantized int8
+    rows where it is < 0. Dequant is dequantize_block's identity —
+    (int8 -> f32) * (scale * RQMAX), cast to the fp pool dtype — so a
+    direct read returns exactly the bytes a promote would have
+    written."""
+    neg = ids < 0
+    dense = pool[torch.where(neg, 0, ids)]             # [..., BS, Hkv, D]
+    q_ids = torch.where(neg, -ids - 1, 0)
+    deq = (q_pool[q_ids].float()
+           * (scales[q_ids] * RQMAX)[..., None, None, None]).to(pool.dtype)
+    return torch.where(neg[..., None, None, None], deq, dense)
 
 
 def ragged_paged_attention_reference(q, k_pool, v_pool, block_tables,
                                      context_lens, q_starts, tile_rows,
                                      tile_offs,
-                                     scale: Optional[float] = None):
+                                     scale: Optional[float] = None,
+                                     kq_pool=None, vq_pool=None,
+                                     k_scales=None, v_scales=None):
     """Plain version for the ragged layout: expand tile metadata to
     per-token rows and run the dense gather + masked attention.
     q: [T, H, D] flat-packed; returns [T, H, D] in q's dtype.
@@ -60,7 +140,9 @@ def ragged_paged_attention_reference(q, k_pool, v_pool, block_tables,
     Gathers [T, MB*BS, Hkv, D] (every token re-gathers its row's
     blocks), like the JAX oracle; masked lanes are selected to NEG_INF
     and underflow to exact zeros, so the scratch contents of padded
-    table entries never reach a real row."""
+    table entries never reach a real row. With kq_pool/vq_pool (and
+    [NQ] k_scales/v_scales) the table is bias-encoded and int8 blocks
+    are dequantized inside the gather (_gather_mixed)."""
     t, h, d = q.shape
     nb, bs, hkv, _ = k_pool.shape
     nt = tile_rows.shape[0]
@@ -74,8 +156,13 @@ def ragged_paged_attention_reference(q, k_pool, v_pool, block_tables,
             .repeat_interleave(tq)
             + torch.arange(tq, device=q.device).repeat(nt))      # [T]
     bt = block_tables.long()[row_of]                             # [T, MB]
-    k = k_pool[bt].reshape(t, mb * bs, hkv, d)
-    v = v_pool[bt].reshape(t, mb * bs, hkv, d)
+    if kq_pool is None:
+        k, v = k_pool[bt], v_pool[bt]
+    else:
+        k = _gather_mixed(k_pool, kq_pool, k_scales, bt)
+        v = _gather_mixed(v_pool, vq_pool, v_scales, bt)
+    k = k.reshape(t, mb * bs, hkv, d)
+    v = v.reshape(t, mb * bs, hkv, d)
     kv_pos = torch.arange(mb * bs, device=q.device)
     ctx = context_lens.long()[row_of]
     mask = ((kv_pos[None, :] <= qpos[:, None])
@@ -108,112 +195,244 @@ def _check_operands(q, k_pool, v_pool, block_tables, context_lens, q_starts,
         raise ValueError(f"flat length {t} not a multiple of {nt} tiles")
 
 
-def _check_block_ids(block_tables, num_blocks: int) -> None:
+def _check_quant_operands(k_pool, kq_pool, vq_pool, k_scales,
+                          v_scales) -> None:
+    quant = (kq_pool, vq_pool, k_scales, v_scales)
+    if any(x is None for x in quant):
+        raise ValueError("kq_pool, vq_pool, k_scales and v_scales go "
+                         "together")
+    nq = kq_pool.shape[0]
+    if (kq_pool.shape[1:] != k_pool.shape[1:] or vq_pool.shape != kq_pool.shape
+            or k_scales.shape != (nq,) or v_scales.shape != (nq,)):
+        raise ValueError(
+            f"expected int8 pools [NQ, BS, Hkv, D] like the fp pools' "
+            f"{tuple(k_pool.shape[1:])} and scales [NQ]; got kq "
+            f"{tuple(kq_pool.shape)}, vq {tuple(vq_pool.shape)}, scales "
+            f"{tuple(k_scales.shape)}/{tuple(v_scales.shape)}")
+
+
+def _check_block_ids(block_tables, num_blocks: int, num_q: int = 0) -> None:
+    """Every id in [-num_q, num_blocks): negative ids are the int8 slots
+    of a bias-encoded table, and exist only when int8 pools are given."""
     lo, hi = int(block_tables.min()), int(block_tables.max())
-    if lo < 0 or hi >= num_blocks:
-        raise ValueError(f"block ids span [{lo}, {hi}], outside the pool's "
-                         f"[0, {num_blocks})")
+    if lo < -num_q or hi >= num_blocks:
+        raise ValueError(f"block ids span [{lo}, {hi}], outside the pools' "
+                         f"[{-num_q}, {num_blocks})")
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(_KERNEL)
-    fn = lib.ptt_ragged_paged_attention
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        smem = lib.ptt_ragged_paged_attention_smem_bytes
+_TYPED: set = set()       # libraries whose entry points carry argtypes
+
+
+def _library(name: str = _KERNEL) -> ctypes.CDLL:
+    """The built library of kernel `name`, its entry points typed."""
+    lib = build.load(name)
+    if name not in _TYPED:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == _KERNEL:
+            entry = {"ptt_ragged_paged_attention": [p] * 9,
+                     "ptt_ragged_paged_attention_mixed": [p] * 13}
+            tail = [i] * 7 + [f, i, p]
+            smem = lib.ptt_ragged_paged_attention_smem_bytes
+        else:
+            entry = {"ptt_paged_attention": [p] * 6}
+            tail = [i] * 6 + [f, i, p]
+            smem = lib.ptt_paged_attention_smem_bytes
+        for fn_name, ptrs in entry.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = ptrs + tail
+            fn.restype = ctypes.c_int
         smem.argtypes = [i] * 4
         smem.restype = ctypes.c_size_t
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
+        _TYPED.add(name)
     return lib
 
 
 def shared_memory_bytes(tile_q: int, groups: int, head_dim: int,
-                        block_size: int) -> int:
-    """Dynamic shared memory one CTA of the kernel takes (the kernel's
-    own count, so a caller can report it beside ptxas's registers)."""
-    return int(_library().ptt_ragged_paged_attention_smem_bytes(
-        tile_q, groups, head_dim, block_size))
+                        block_size: int, kernel: str = _KERNEL) -> int:
+    """Dynamic shared memory one CTA of `kernel` takes (the kernel's own
+    count, so a caller can report it beside ptxas's registers); the
+    paged-decode kernel holds one query per head (tile_q 1)."""
+    lib = _library(kernel)
+    fn = (lib.ptt_ragged_paged_attention_smem_bytes if kernel == _KERNEL
+          else lib.ptt_paged_attention_smem_bytes)
+    return int(fn(tile_q, groups, head_dim, block_size))
+
+
+def _check_launch(name: str, q, floats, ints, quant=()) -> None:
+    """What every CUDA entry point needs of its operands: one device,
+    contiguous, f32/bf16 q and pools, int32 metadata, int8 pools and f32
+    scales, 16-byte aligned q and pools, D a multiple of 8 up to 256."""
+    d = q.shape[-1]
+    for x in floats + ints + quant:
+        if x.device != q.device:
+            raise ValueError(f"operands on {x.device} and {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs contiguous operands")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    if any(x.dtype != q.dtype for x in floats):
+        raise TypeError(f"pools {floats[1].dtype}/{floats[2].dtype} must "
+                        f"match q {q.dtype}")
+    if any(x.dtype != torch.int32 for x in ints):
+        raise TypeError("block tables, context lengths and tile metadata "
+                        "must be int32")
+    if quant and (quant[0].dtype != torch.int8 or quant[1].dtype != torch.int8
+                  or quant[2].dtype != torch.float32
+                  or quant[3].dtype != torch.float32):
+        raise TypeError("int8 pools must be int8 and their scales float32")
+    if d % 8 or d > 256:
+        raise ValueError(f"head dim {d} must be a multiple of 8, <= 256")
+    if any(x.data_ptr() % 16 for x in floats + quant[:2]):
+        raise ValueError("q and pools must be 16-byte aligned")
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.ptt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
+
+
+def _check_smem(smem: int, what: str) -> None:
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"{what} needs {smem} B of shared memory per CTA, "
+                         f"over the card's {_MAX_SMEM_BYTES}")
 
 
 def _launch(q, k_pool, v_pool, block_tables, context_lens, q_starts,
-            tile_rows, tile_offs, scale: float) -> torch.Tensor:
+            tile_rows, tile_offs, scale: float,
+            quant=()) -> torch.Tensor:
+    """Kernel 1 (fp pools) or, with `quant` = (kq, vq, k_scales,
+    v_scales), kernel 2 (bias-encoded tables over fp + int8 pools)."""
     t, h, d = q.shape
     nb, bs, hkv, _ = k_pool.shape
     nt = tile_rows.shape[0]
     tq = t // nt
     ints = (block_tables, context_lens, q_starts, tile_rows, tile_offs)
-    floats = (q, k_pool, v_pool)
-    for x in floats + ints:
-        if x.device != q.device:
-            raise ValueError(f"operands on {x.device} and {q.device}")
-        if not x.is_contiguous():
-            raise ValueError("ragged_paged_attention needs contiguous "
-                             "operands")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"dtype {q.dtype} not supported (float32, bfloat16)")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"pools {k_pool.dtype}/{v_pool.dtype} must match q "
-                        f"{q.dtype}")
-    if any(x.dtype != torch.int32 for x in ints):
-        raise TypeError("block_tables, context_lens, q_starts, tile_rows "
-                        "and tile_offs must be int32")
-    if d % 8 or d > 256:
-        raise ValueError(f"head dim {d} must be a multiple of 8, <= 256")
-    if any(x.data_ptr() % 16 for x in floats):
-        raise ValueError("q and pools must be 16-byte aligned")
+    _check_launch("ragged_paged_attention", q, (q, k_pool, v_pool), ints,
+                  quant)
     lib = _library()
-    smem = shared_memory_bytes(tq, h // hkv, d, bs)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"tile_q={tq} x groups={h // hkv} x head_dim={d} with "
-            f"block_size={bs} needs {smem} B of shared memory per CTA, "
-            f"over the card's {_MAX_SMEM_BYTES}")
+    _check_smem(shared_memory_bytes(tq, h // hkv, d, bs),
+                f"tile_q={tq} x groups={h // hkv} x head_dim={d} with "
+                f"block_size={bs}")
     out = torch.empty_like(q)
+    tail = (nt, tq, h, hkv, d, bs, block_tables.shape[1], float(scale),
+            _DTYPE_CODES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ptt_ragged_paged_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(),
-            q_starts.data_ptr(), tile_rows.data_ptr(), tile_offs.data_ptr(),
-            out.data_ptr(), nt, tq, h, hkv, d, bs, block_tables.shape[1],
-            float(scale), _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        msg = lib.ptt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"ragged_paged_attention launch failed: "
-                           f"cudaError {rc} ({msg})")
-    ragged_paged_attention.launches += 1
+        if quant:
+            rc = lib.ptt_ragged_paged_attention_mixed(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                *[x.data_ptr() for x in quant],
+                *[x.data_ptr() for x in ints], out.data_ptr(), *tail,
+                stream)
+        else:
+            rc = lib.ptt_ragged_paged_attention(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                *[x.data_ptr() for x in ints], out.data_ptr(), *tail,
+                stream)
+    _raise_on(lib, rc, "ragged_paged_attention")
+    if quant:
+        ragged_paged_attention.mixed_launches += 1
+    else:
+        ragged_paged_attention.launches += 1
     return out
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                            q_starts, tile_rows, tile_offs,
                            scale: Optional[float] = None,
+                           kq_pool=None, vq_pool=None,
+                           k_scales=None, v_scales=None,
                            check_block_ids: bool = False):
     """Mixed prefill+decode attention over the flat ragged packing — the
     engine's single-step entry point. Dispatch is by the tensors'
     device: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (launched or raised, never replaced). `check_block_ids` is
-    the debug check that every block id lies in [0, NB): a CUDA kernel
-    would read garbage where JAX clamps (it syncs with the device)."""
+    tensors (launched or raised, never replaced).
+
+    With the int8 pools (kq_pool/vq_pool [NQ, BS, Hkv, D] int8,
+    k_scales/v_scales [NQ] f32) the table is bias-encoded and the mixed
+    kernel reads int8 blocks in place; the call's shapes are the same
+    whether a batch is fp-only, mixed or all-int8. `check_block_ids` is
+    the debug check that every id lies in [-NQ, NB): a CUDA kernel would
+    read garbage where JAX clamps (it syncs with the device)."""
     _check_operands(q, k_pool, v_pool, block_tables, context_lens, q_starts,
                     tile_rows, tile_offs)
+    quant = ()
+    if kq_pool is not None or k_scales is not None:
+        _check_quant_operands(k_pool, kq_pool, vq_pool, k_scales, v_scales)
+        quant = (kq_pool, vq_pool, k_scales, v_scales)
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if check_block_ids:
-        _check_block_ids(block_tables, k_pool.shape[0])
+        _check_block_ids(block_tables, k_pool.shape[0],
+                         kq_pool.shape[0] if quant else 0)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_pool, v_pool, block_tables, context_lens, q_starts,
-            tile_rows, tile_offs, scale=scale)
+            tile_rows, tile_offs, scale, kq_pool, vq_pool, k_scales,
+            v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_paged_attention for device {q.device}")
     return _launch(q, k_pool, v_pool, block_tables, context_lens, q_starts,
-                   tile_rows, tile_offs, scale)
+                   tile_rows, tile_offs, scale, quant)
 
 
-# kernel launches since the last reset (set to 0 to reset); the plain
-# version on CPU tensors does not count
+# kernel launches since the last reset (set to 0 to reset): `launches`
+# counts kernel 1 (fp pools), `mixed_launches` kernel 2 (int8 pools
+# given); the plain version on CPU tensors counts in neither
 ragged_paged_attention.launches = 0
+ragged_paged_attention.mixed_launches = 0
+
+
+def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
+                    scale: Optional[float] = None,
+                    check_block_ids: bool = False):
+    """Single-token decode attention over block tables — the split
+    path's decode entry point (`MultiHeadAttention.decode_paged`).
+    q: [B, H, D]; pools [NB, BS, Hkv, D]; block_tables [B, MB] int32;
+    context_lens [B] int32 (tokens visible to each row, this one
+    included). Returns [B, H, D]. Dispatch by device as
+    `ragged_paged_attention`."""
+    if (q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or k_pool.shape[3] != q.shape[2]):
+        raise ValueError(
+            f"expected q [B, H, D] and pools [NB, BS, Hkv, D]; got q "
+            f"{tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
+            f"{tuple(v_pool.shape)}")
+    b, h, d = q.shape
+    nb, bs, hkv, _ = k_pool.shape
+    if h % hkv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+    if (block_tables.dim() != 2 or block_tables.shape[0] != b
+            or context_lens.shape != (b,)):
+        raise ValueError("expected block_tables [B, MB], context_lens [B]")
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if check_block_ids:
+        _check_block_ids(block_tables, nb)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                         context_lens, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_attention for device {q.device}")
+    ints = (block_tables, context_lens)
+    _check_launch("paged_attention", q, (q, k_pool, v_pool), ints)
+    lib = _library(_PAGED_KERNEL)
+    _check_smem(shared_memory_bytes(1, h // hkv, d, bs, _PAGED_KERNEL),
+                f"groups={h // hkv} x head_dim={d} with block_size={bs}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.ptt_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            b, h, hkv, d, bs, block_tables.shape[1], float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+    _raise_on(lib, rc, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+# kernel-3 launches since the last reset (set to 0 to reset)
+paged_attention.launches = 0

@@ -6,17 +6,22 @@ Module and parameter names mirror the JAX module tree so a JAX
 `v_proj` or head-major fused `qkv`, then `out_proj`), `ln2`, `ffn`
 (`fc1`, `fc2`), then `ln_f` and, when untied, `head`.
 
-Two paths:
+Three paths:
 
 - `CausalLM.forward` — dense logits with plain causal attention, the
-  oracle the tests hold the serve step against.
+  oracle the tests hold the serve steps against.
 - `CausalLM.ragged_step_paged` — ONE mixed prefill+decode serve step
-  over the flat ragged packing. The step's k/v is written into the
-  per-layer block pools IN PLACE (JAX returns new pools; an in-place
-  `index_copy_` saves a pool-sized copy per layer per step), then one
-  `ragged_paged_attention` call per layer serves every row. The
-  projections, the FFN and the tied head stay `torch.matmul`, as JAX
-  left them to XLA.
+  over the flat ragged packing (the engine's path). With the engine's
+  int8 tier on, each layer's int8 pools and scales join its attention
+  call, and bias-encoded table entries are read in place.
+- the split path: `CausalLM.prefill_chunk_paged` (a window of each
+  prompt, plain `paged_prefill_attention`) then `decode_step_paged`
+  (one token per sequence through the `paged_attention` kernel).
+
+Every paged path writes the step's k/v into the per-layer block pools
+IN PLACE (JAX returns new pools; an in-place `index_copy_` saves a
+pool-sized copy per layer per step). The projections, the FFN and the
+tied head stay `torch.matmul`, as JAX left them to XLA.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from paddle_tpu_torch.kernels.attention import causal_attention
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+# one layer's int8 tier: (kq_pool, vq_pool, k_scales, v_scales)
+QPool = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def sinusoid_position_encoding(maxlen: int, dim: int,
@@ -106,32 +113,78 @@ class MultiHeadAttention(nn.Module):
         out = causal_attention(qh, kh, vh)
         return self.out_proj(out.reshape(b, t, self.model_dim))
 
-    def ragged_step_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
-                          v_pool: torch.Tensor, block_tables: torch.Tensor,
-                          context_lens: torch.Tensor, q_starts: torch.Tensor,
-                          tile_rows: torch.Tensor, tile_offs: torch.Tensor,
-                          slots: torch.Tensor) -> torch.Tensor:
-        """Mixed prefill+decode step over the FLAT ragged packing: x
-        [T, D]. The step's k/v is scattered into the pools at `slots`
-        [T] first (in place), then one attention call serves every row.
-        Returns out [T, D].
-
-        Pad positions all scatter to scratch slot 0. With duplicate
-        indices CUDA's index_copy_ keeps an arbitrary one of the
-        writes; that is harmless because only the null row (ctx 1,
-        all-zero table) reads scratch, and pad queries are never
+    @staticmethod
+    def _scatter(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 kh: torch.Tensor, vh: torch.Tensor,
+                 slots: torch.Tensor) -> None:
+        """Write k/v rows [N, Hkv, hd] into the pools' flat slots [N],
+        in place. Pad positions all scatter to scratch slot 0: with
+        duplicate indices CUDA's index_copy_ keeps an arbitrary one of
+        the writes, which is harmless because only the null row (ctx 1,
+        all-zero table) reads scratch and pad queries are never
         sampled."""
-        t = x.shape[0]
-        qh, kh, vh = self._project(x)
         nb, bs = k_pool.shape[:2]
         k_pool.view(nb * bs, *k_pool.shape[2:]).index_copy_(
             0, slots, kh.to(k_pool.dtype))
         v_pool.view(nb * bs, *v_pool.shape[2:]).index_copy_(
             0, slots, vh.to(v_pool.dtype))
+
+    def ragged_step_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          context_lens: torch.Tensor, q_starts: torch.Tensor,
+                          tile_rows: torch.Tensor, tile_offs: torch.Tensor,
+                          slots: torch.Tensor,
+                          qpool: Optional[QPool] = None) -> torch.Tensor:
+        """Mixed prefill+decode step over the FLAT ragged packing: x
+        [T, D]. The step's k/v is scattered into the pools at `slots`
+        [T] first (in place), then one attention call serves every row.
+        `qpool` = (kq, vq, k_scales, v_scales) threads this layer's int8
+        tier into the call: bias-encoded (negative) table entries read
+        it in place. Writes always target the fp pool. Returns out
+        [T, D]."""
+        t = x.shape[0]
+        qh, kh, vh = self._project(x)
+        self._scatter(k_pool, v_pool, kh, vh, slots)
+        kq, vq, ksc, vsc = qpool if qpool is not None else (None,) * 4
         out = paged.ragged_paged_attention(
             qh.contiguous(), k_pool, v_pool, block_tables, context_lens,
-            q_starts, tile_rows, tile_offs)                      # [T, H, hd]
+            q_starts, tile_rows, tile_offs, kq_pool=kq, vq_pool=vq,
+            k_scales=ksc, v_scales=vsc)                          # [T, H, hd]
         return self.out_proj(out.reshape(t, self.model_dim))
+
+    def decode_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, block_tables: torch.Tensor,
+                     context_lens: torch.Tensor,
+                     slots: torch.Tensor) -> torch.Tensor:
+        """Single-token decode through the paged cache: x [B, 1, D];
+        block_tables [B, MB]; context_lens [B] valid tokens INCLUDING
+        this one; slots [B] flat pool slots receiving this token's k/v
+        (written into the pools in place, where JAX returns new pools).
+        Returns out [B, 1, D]."""
+        b = x.shape[0]
+        qh, kh, vh = self._project(x)                    # [B, 1, H|Hkv, hd]
+        self._scatter(k_pool, v_pool, kh[:, 0], vh[:, 0], slots)
+        out = paged.paged_attention(qh[:, 0].contiguous(), k_pool, v_pool,
+                                    block_tables, context_lens)  # [B, H, hd]
+        return self.out_proj(out.reshape(b, 1, self.model_dim))
+
+    def prefill_chunk_paged(self, x: torch.Tensor, q_positions: torch.Tensor,
+                            k_pool: torch.Tensor, v_pool: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            context_lens: torch.Tensor,
+                            slots: torch.Tensor) -> torch.Tensor:
+        """Chunked prefill through the paged cache: x [B, C, D], a window
+        of each prompt at absolute q_positions [B, C]; slots [B*C]
+        receive the chunk's k/v first (in place), then every chunk query
+        attends causally over the cached prefix and the chunk. Returns
+        out [B, C, D]."""
+        b, c = x.shape[:2]
+        qh, kh, vh = self._project(x)
+        self._scatter(k_pool, v_pool, kh.reshape(-1, *kh.shape[2:]),
+                      vh.reshape(-1, *vh.shape[2:]), slots)
+        out = paged.paged_prefill_attention(qh, k_pool, v_pool, block_tables,
+                                            context_lens, q_positions)
+        return self.out_proj(out.reshape(b, c, self.model_dim))
 
 
 class FeedForward(nn.Module):
@@ -169,14 +222,29 @@ class CausalBlock(nn.Module):
         x = x + self.drop(self.attn(self.ln1(x)))
         return x + self.drop(self.ffn(self.ln2(x)))
 
-    def ragged_step_paged(self, x, k_pool, v_pool, block_tables,
-                          context_lens, q_starts, tile_rows, tile_offs,
-                          slots) -> torch.Tensor:
-        h = self.attn.ragged_step_paged(
-            self.ln1(x), k_pool, v_pool, block_tables, context_lens,
-            q_starts, tile_rows, tile_offs, slots)
+    def _ffn_residual(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         x = x + self.drop(h)
         return x + self.drop(self.ffn(self.ln2(x)))
+
+    def ragged_step_paged(self, x, k_pool, v_pool, block_tables,
+                          context_lens, q_starts, tile_rows, tile_offs,
+                          slots, qpool: Optional[QPool] = None
+                          ) -> torch.Tensor:
+        return self._ffn_residual(x, self.attn.ragged_step_paged(
+            self.ln1(x), k_pool, v_pool, block_tables, context_lens,
+            q_starts, tile_rows, tile_offs, slots, qpool=qpool))
+
+    def decode_paged(self, x, k_pool, v_pool, block_tables, context_lens,
+                     slots) -> torch.Tensor:
+        return self._ffn_residual(x, self.attn.decode_paged(
+            self.ln1(x), k_pool, v_pool, block_tables, context_lens, slots))
+
+    def prefill_chunk_paged(self, x, q_positions, k_pool, v_pool,
+                            block_tables, context_lens,
+                            slots) -> torch.Tensor:
+        return self._ffn_residual(x, self.attn.prefill_chunk_paged(
+            self.ln1(x), q_positions, k_pool, v_pool, block_tables,
+            context_lens, slots))
 
 
 class CausalLM(nn.Module):
@@ -235,7 +303,9 @@ class CausalLM(nn.Module):
                           context_lens: torch.Tensor, q_starts: torch.Tensor,
                           tile_rows: torch.Tensor, tile_offs: torch.Tensor,
                           slots: torch.Tensor,
-                          last_idx: torch.Tensor) -> torch.Tensor:
+                          last_idx: torch.Tensor,
+                          qpools: Pools = (), qscales: Pools = ()
+                          ) -> torch.Tensor:
         """ONE mixed prefill+decode serve step over the flat ragged
         packing. tokens [T] ids and positions [T] are the flat packing
         (pad positions carry token 0 at position 0 and scatter to
@@ -245,17 +315,71 @@ class CausalLM(nn.Module):
         layer's (k_pool, v_pool), written in place. last_idx gathers hidden
         states by flat index: logits come back as last_idx.shape + (V,).
         Positions are clipped to [0, max_len): a PyTorch gather raises
-        (a CUDA one reads garbage) where JAX's clamps."""
+        (a CUDA one reads garbage) where JAX's clamps. With `qpools`
+        (per layer (kq, vq)) and `qscales` (per layer (k, v) scales) —
+        the engine's int8 tier; empty when it is off — every layer's
+        attention call takes its int8 pools, so the call has one shape
+        whether a batch is fp-only, mixed or all-int8."""
         x = self.embed(tokens.long()) * math.sqrt(self.model_dim)  # [T, D]
-        pos_safe = positions.long().clamp(0, self.max_len - 1)
-        x = x + self.pe[pos_safe].to(x.dtype)
+        x = x + self.pe[self._clip(positions)].to(x.dtype)
         slots = slots.long()
-        for blk, (k_pool, v_pool) in zip(self.blocks, pools):
+        for li, (blk, (k_pool, v_pool)) in enumerate(zip(self.blocks, pools)):
+            qpool = (*qpools[li], *qscales[li]) if qpools else None
             x = blk.ragged_step_paged(x, k_pool, v_pool, block_tables,
                                       context_lens, q_starts, tile_rows,
-                                      tile_offs, slots)
+                                      tile_offs, slots, qpool=qpool)
         # LayerNorm is row-wise, so gathering the sampled rows first
         # gives the same values as normalising all T rows
         idx = last_idx.long()
         logits = self._head(self.ln_f(x[idx.reshape(-1)]))
         return logits.reshape(*idx.shape, logits.shape[-1])
+
+    def _clip(self, positions: torch.Tensor) -> torch.Tensor:
+        """Positions clipped to [0, max_len) for the encoding gather, as
+        JAX's clamping gather and its serve paths' explicit clips do."""
+        return positions.long().clamp(0, self.max_len - 1)
+
+    def prefill_chunk_paged(self, tokens: torch.Tensor,
+                            start_pos: torch.Tensor, pools: Pools,
+                            block_tables: torch.Tensor,
+                            context_lens: torch.Tensor, slots: torch.Tensor,
+                            last_idx: torch.Tensor) -> torch.Tensor:
+        """Chunked/suffix-only prefill of the split path: tokens [B, C]
+        is ONE window of each prompt (right-padded; pad positions
+        scatter to scratch slot 0), start_pos [B] the absolute position
+        of each row's first window token. k/v lands in the pools in
+        place (JAX returns new pools); attention runs causally through
+        the pools (cached prefix + this chunk). Returns logits [B, V] at each row's within-chunk
+        `last_idx`."""
+        b, c = tokens.shape
+        x = self.embed(tokens.long()) * math.sqrt(self.model_dim)
+        pos = (start_pos.long()[:, None]
+               + torch.arange(c, device=tokens.device)[None, :])  # [B, C]
+        x = x + self.pe[self._clip(pos)].to(x.dtype)
+        slots = slots.long()
+        for blk, (k_pool, v_pool) in zip(self.blocks, pools):
+            x = blk.prefill_chunk_paged(x, pos, k_pool, v_pool, block_tables,
+                                        context_lens, slots)
+        hidden = self.ln_f(x)
+        last_h = hidden[torch.arange(b, device=tokens.device),
+                        last_idx.long()]
+        return self._head(last_h)
+
+    def decode_step_paged(self, tokens: torch.Tensor,
+                          positions: torch.Tensor, pools: Pools,
+                          block_tables: torch.Tensor,
+                          context_lens: torch.Tensor,
+                          slots: torch.Tensor) -> torch.Tensor:
+        """Continuous-batching decode step of the split path: tokens [B]
+        at per-sequence positions [B] (rows decode at different
+        depths), block_tables [B, MB], context_lens [B] (= positions +
+        1), slots [B] flat pool slots for this token's k/v (written in
+        place, where JAX returns new pools). One `paged_attention`
+        kernel call per layer. Returns logits [B, V]."""
+        x = self.embed(tokens.long()[:, None]) * math.sqrt(self.model_dim)
+        x = x + self.pe[self._clip(positions)].to(x.dtype)[:, None]
+        slots = slots.long()
+        for blk, (k_pool, v_pool) in zip(self.blocks, pools):
+            x = blk.decode_paged(x, k_pool, v_pool, block_tables,
+                                 context_lens, slots)
+        return self._head(self.ln_f(x))[:, 0]

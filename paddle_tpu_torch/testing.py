@@ -7,6 +7,9 @@ through the JAX package and through the port alike.
 
 from __future__ import annotations
 
+import json
+import os
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +62,91 @@ def ragged_case(rows: Sequence[Tuple[int, int]], h: int, hkv: int, d: int,
 
 RAGGED_ARGS = ("q", "k_pool", "v_pool", "block_tables", "context_lens",
                "q_starts", "tile_rows", "tile_offs")
+QUANT_ARGS = ("kq_pool", "vq_pool", "k_scales", "v_scales")
+
+
+def int8_blocks(case: Dict[str, np.ndarray], which="odd",
+                dtype=None) -> Tuple[Dict[str, np.ndarray],
+                                     Dict[str, np.ndarray], int]:
+    """Move some referenced blocks of a ragged case into int8 slots, as
+    the engine's compressed tier does. `which`: "odd" takes the blocks
+    at odd table positions, "all" every block a row reads, or a
+    callable (row, table position, row's q_start) -> bool. Returns
+    (mixed, promoted, count): `mixed` is the case with a bias-encoded
+    table (block b -> -(slot+1)) and QUANT_ARGS added; `promoted` the
+    case with those blocks' fp content replaced by dequantize_block of
+    their int8 copy — what a promote writes. A direct read of `mixed`
+    must equal a read of `promoted` bit for bit. `dtype` (a torch
+    dtype, default f32) is the pool dtype the promotion casts to; the
+    pools come back in that dtype's values, stored as float32."""
+    import torch
+
+    from paddle_tpu_torch.quant.int8_compute import (dequantize_block,
+                                                     quantize_block)
+    pick = which if callable(which) else (
+        lambda row, j, q_start: which == "all" or j % 2 == 1)
+    dtype = dtype or torch.float32
+    bt = case["block_tables"]
+    bs = case["k_pool"].shape[1]
+    k = torch.from_numpy(case["k_pool"]).to(dtype)
+    v = torch.from_numpy(case["v_pool"]).to(dtype)
+    picks: List[int] = []
+    for i in range(bt.shape[0] - 1):              # the last row is null
+        for j in range(-(-int(case["context_lens"][i]) // bs)):
+            b = int(bt[i, j])
+            if b not in picks and pick(i, j, int(case["q_starts"][i])):
+                picks.append(b)
+    if not picks:
+        raise ValueError("no block picked for the int8 tier")
+    idx = torch.tensor(picks, dtype=torch.long)
+    kq, ks = quantize_block(k[idx])
+    vq, vs = quantize_block(v[idx])
+    k_pro, v_pro = k.clone(), v.clone()
+    k_pro[idx] = dequantize_block(kq, ks, dtype)
+    v_pro[idx] = dequantize_block(vq, vs, dtype)
+    slot_of = {b: s for s, b in enumerate(picks)}
+    bt_mixed = np.vectorize(lambda b: -(slot_of[b] + 1) if b in slot_of
+                            else b, otypes=[np.int32])(bt)
+    f32 = {"k_pool": k.float().numpy(), "v_pool": v.float().numpy()}
+    mixed = dict(case, **f32, block_tables=bt_mixed, kq_pool=kq.numpy(),
+                 vq_pool=vq.numpy(), k_scales=ks.numpy(),
+                 v_scales=vs.numpy())
+    promoted = dict(case, k_pool=k_pro.float().numpy(),
+                    v_pool=v_pro.float().numpy())
+    return mixed, promoted, len(picks)
+
+
+PAGED_ARGS = ("q", "k_pool", "v_pool", "block_tables", "context_lens")
+
+
+def paged_case(context_lens: Sequence[int], h: int, hkv: int, d: int,
+               bs: int, num_blocks: Optional[int] = None,
+               max_blocks: Optional[int] = None,
+               seed: int = 0) -> Dict[str, np.ndarray]:
+    """Operands of one single-token paged decode call (keys in
+    PAGED_ARGS order): q [B, H, D], pools [NB, BS, Hkv, D] float32,
+    shuffled block tables [B, MB] (unused entries scratch block 0) and
+    context_lens [B] int32."""
+    rng = np.random.default_rng(seed)
+    need = [-(-ctx // bs) for ctx in context_lens]
+    num_blocks = num_blocks or sum(need) + 1
+    max_blocks = max_blocks or max(need)
+    ids = rng.permutation(np.arange(1, num_blocks))
+    if sum(need) > len(ids) or max(need) > max_blocks:
+        raise ValueError("pool or table too small for the rows")
+    bt = np.zeros((len(context_lens), max_blocks), np.int32)
+    used = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = ids[used:used + n]
+        used += n
+    shape = (num_blocks, bs, hkv, d)
+    return {
+        "q": rng.standard_normal((len(context_lens), h, d), np.float32),
+        "k_pool": rng.standard_normal(shape, np.float32),
+        "v_pool": rng.standard_normal(shape, np.float32),
+        "block_tables": bt,
+        "context_lens": np.asarray(context_lens, np.int32),
+    }
 
 
 def causal_lm_tree(seed: int, vocab: int, model_dim: int, num_heads: int,
@@ -150,3 +238,45 @@ def pack_prompts(prompts: List[List[int]], bs: int, tq: int,
         cursor += -(-n // tq) * tq
         block += nblk
     return ops, block
+
+
+def write_serving_export(path: str, tree: Dict, serve_meta: Dict) -> str:
+    """Write the part of a JAX `save_inference_model` directory that
+    `ServeEngine.from_saved_model` reads, with numpy only:
+    `signature.json` carrying the `serve` block, and the `params`
+    checkpoint in format version 2 (manifest.json with per-file CRC32s,
+    shards-p0.npz, shard_index-p0.json; paddle_tpu/io/checkpoint.py
+    :18-33). Every leaf is one whole piece. Returns `path`."""
+    flat: List[Tuple[str, np.ndarray]] = []
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            name = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(node[key], dict):
+                walk(node[key], name)
+            else:
+                flat.append((name, np.asarray(node[key])))
+    walk(tree, "")
+    params = os.path.join(path, "params")
+    os.makedirs(params, exist_ok=True)
+    slots = {f"a{i}_s{i}": arr for i, (_, arr) in enumerate(flat)}
+    np.savez(os.path.join(params, "shards-p0.npz"), **slots)
+    index = [{"leaf": i, "slot": f"a{i}_s{i}",
+              "index": [[0, d] for d in arr.shape]}
+             for i, (_, arr) in enumerate(flat)]
+    with open(os.path.join(params, "shard_index-p0.json"), "w") as f:
+        json.dump(index, f)
+    files = {}
+    for name in ("shard_index-p0.json", "shards-p0.npz"):
+        with open(os.path.join(params, name), "rb") as f:
+            data = f.read()
+        files[name] = {"crc32": zlib.crc32(data), "bytes": len(data)}
+    manifest = {"version": 2, "step": None, "metadata": {},
+                "process_count": 1, "files": files,
+                "leaves": [{"key": k, "shape": list(a.shape),
+                            "dtype": str(a.dtype)} for k, a in flat]}
+    with open(os.path.join(params, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    with open(os.path.join(path, "signature.json"), "w") as f:
+        json.dump({"version": 1, "serve": dict(serve_meta)}, f, indent=1)
+    return path
