@@ -12,6 +12,11 @@ vocab 32000, d 512, 8 heads, 6 layers, ffn 2048, tied head, max_len
 2048) with random weights made from a seed, through the entry points a
 user calls:
 
+- `train`: a `Trainer` taking Adam steps on a bf16 `CausalLM` under the
+  fused cross-entropy, B 4 x T 2048 — the flash forward, dq and dk/dv
+  kernels; `train_vs_plain` holds one f32 step through the kernels
+  against the same step through their plain versions;
+
 - `engine`: a `ServeEngine` (bf16) serving two waves that share a
   prefix — the fp ragged kernel;
 - `engine_int8`: `ServeEngine.from_saved_model` over a v2 export of the
@@ -22,7 +27,7 @@ user calls:
   `decode_step_paged` — the paged-decode kernel.
 
 Each kernel's launch count is set to 0 just before its path runs and
-read just after. Each phase prints one JSON line; any failed check
+read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
 raises and the script exits non-zero. The line before the last lists
 the kernels; the last line is `{"ok": true, "device": {...}}`.
 
@@ -33,6 +38,7 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import logging
@@ -46,14 +52,19 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import Trainer
 from paddle_tpu_torch.engine import ServeEngine
-from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.models import CausalLM, load_jax_params
-from paddle_tpu_torch.testing import (PAGED_ARGS, QUANT_ARGS, RAGGED_ARGS,
-                                      STEP_ARGS, causal_lm_tree,
-                                      int8_blocks, pack_prompts, paged_case,
-                                      ragged_case, write_serving_export)
+from paddle_tpu_torch.ops import linear_cross_entropy
+from paddle_tpu_torch.optim import Adam
+from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
+                                      RAGGED_ARGS, STEP_ARGS, causal_lm_tree,
+                                      flash_case, int8_blocks, lm_stream,
+                                      pack_prompts, packed_segment_ids,
+                                      paged_case, ragged_case,
+                                      write_serving_export)
 
 # the repo's LM configuration (paddle_tpu/benchmark/models.py:150-152)
 LM_BASE = dict(model_dim=512, num_heads=8, num_layers=6, ffn_dim=2048,
@@ -70,8 +81,14 @@ SEED = 1234
 # where the engine_int8 phase writes its export (git-ignored build/)
 EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
 
+FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+SDPA_FWD = "F.scaled_dot_product_attention(is_causal=True), forward"
+SDPA_BWD = ("F.scaled_dot_product_attention(is_causal=True), backward: "
+            "dq, dk and dv in one call, beside the sum of kernels 5 and 6")
+
 KERNEL_ROWS = {
-    # name: (source, the TPU kernel it replaces, library_ms note)
+    # name: (source, the TPU kernel it replaces, library_ms note: why
+    # it is null, or which PyTorch call it times)
     "ragged_paged_attention": (
         "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
         "paddle_tpu/kernels/paged_attention.py:428",
@@ -87,7 +104,11 @@ KERNEL_ROWS = {
         "paddle_tpu/kernels/paged_attention.py:173",
         "no single PyTorch call gathers K/V through block tables; "
         "scaled_dot_product_attention needs the K/V gathered dense first"),
+    "flash_fwd": (FLASH_SRC, "paddle_tpu/kernels/flash.py:202", SDPA_FWD),
+    "flash_dq": (FLASH_SRC, "paddle_tpu/kernels/flash.py:363", SDPA_BWD),
+    "flash_dkv": (FLASH_SRC, "paddle_tpu/kernels/flash.py:419", SDPA_BWD),
 }
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 class SmokeFailure(RuntimeError):
@@ -265,7 +286,10 @@ def phase_build(cfg: dict, cuda: bool) -> None:
               paged.shared_memory_bytes(cfg["tile_q"], 1, d, bs),
           "paged_attention_dynamic_smem_bytes_gqa":
               paged.shared_memory_bytes(1, h // cfg["gqa_kv_heads"], d, bs,
-                                        "paged_attention")})
+                                        "paged_attention"),
+          "flash_dynamic_smem_bytes": {
+              which: flash.shared_memory_bytes(which, d)
+              for which in ("fwd", "dq", "dkv")}})
 
 
 def _plain(args):
@@ -357,19 +381,24 @@ def phase_mixed_vs_promote(cfg: dict, device: torch.device) -> None:
 
 
 def _timed(name: str, launch, plain, cost, dtype, cfg: dict, cuda: bool,
-           card: dict, **info) -> dict:
-    ms = time_ms(launch, cfg["time_iters"], 10, cuda)
+           card: dict, library_ms=None, iters=None, **info) -> dict:
+    """Time a kernel (and its plain version) at its path's shape; with
+    `library_ms`, the time of the PyTorch call that computes the same
+    function, measured by the caller."""
+    ms = time_ms(launch, iters or cfg["time_iters"], 10, cuda)
     plain_ms = time_ms(plain, cfg["plain_iters"], 2, cuda)
     nbytes, flops = cost
     bytes_ms, ops_ms, bound_ms = bound(nbytes, flops, dtype)
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
-           "library_ms": None, "bytes": nbytes, "flops": flops}
+           "library_ms": library_ms, "bytes": nbytes, "flops": flops}
+    note = KERNEL_ROWS[name][2]
     emit({"phase": "kernel_time", "kernel": name,
           "dtype": str(dtype).replace("torch.", ""), **info,
           "device": card["kind"], "nvidia_smi": card["smi"], **out,
-          "note": f"library_ms null: {KERNEL_ROWS[name][2]}"})
+          "note": (f"library_ms null: {note}" if library_ms is None
+                   else f"library_ms: {note}")})
     return out
 
 
@@ -481,25 +510,32 @@ def _reset_launches() -> None:
     paged.ragged_paged_attention.launches = 0
     paged.ragged_paged_attention.mixed_launches = 0
     paged.paged_attention.launches = 0
+    for fn in (flash.flash_fwd, flash.flash_dq, flash.flash_dkv):
+        fn.launches = 0
 
 
 def _launches() -> Dict[str, int]:
     return {"ragged_paged_attention": paged.ragged_paged_attention.launches,
             "ragged_paged_attention_mixed":
                 paged.ragged_paged_attention.mixed_launches,
-            "paged_attention": paged.paged_attention.launches}
+            "paged_attention": paged.paged_attention.launches,
+            "flash_fwd": flash.flash_fwd.launches,
+            "flash_dq": flash.flash_dq.launches,
+            "flash_dkv": flash.flash_dkv.launches}
 
 
-def _expect_launches(kernel: str, steps: int, layers: int,
+def _expect_launches(kernels, steps: int, layers: int,
                      cuda: bool) -> Dict[str, int]:
-    """After a path's run: `kernel` launched once per layer per step and
-    no other kernel launched (on the CPU nothing launches)."""
+    """After a path's run: each of `kernels` (a name or a tuple of
+    names) launched once per layer per step and no other kernel
+    launched (on the CPU nothing launches)."""
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
     got = _launches()
     want = dict.fromkeys(got, 0)
     if cuda:
-        want[kernel] = steps * layers
+        want.update(dict.fromkeys(kernels, steps * layers))
     check(got == want, f"kernel launches {got} != {want} ({steps} steps "
-                       f"x {layers} layers through {kernel})")
+                       f"x {layers} layers through {kernels})")
     return got
 
 
@@ -734,7 +770,7 @@ def phase_split_path(cfg: dict, tree: dict, device: torch.device,
                         device=device)
     dev_tables = torch.from_numpy(tables).to(device)
     seqs = [list(p) for p in prompts]
-    worst = 0.0
+    steps_out = []                      # (sequences so far, step logits)
     _reset_launches()                               # the path's counts
     with torch.inference_mode():
         logits = model.prefill_chunk_paged(
@@ -753,15 +789,21 @@ def phase_split_path(cfg: dict, tree: dict, device: torch.device,
                  for i, p in enumerate(pos.tolist())], device=device)
             logits = model.decode_step_paged(tok, pos, pools, dev_tables,
                                              lens, dslots)
-            dense = torch.stack([model(torch.tensor([s], device=device))
-                                 [0, -1] for s in seqs])
-            worst = max(worst, float((logits - dense).abs().max()))
-            check(bool(torch.isfinite(logits).all()),
-                  "non-finite decode logits")
+            steps_out.append(([list(x) for x in seqs], logits))
     if cuda:
         torch.cuda.synchronize()
     launches = _expect_launches("paged_attention", steps,
                                 len(model.blocks), cuda)
+    # the dense oracle runs after the count: on the card its attention
+    # is the flash forward kernel
+    worst = 0.0
+    with torch.inference_mode():
+        for seqs_i, logits in steps_out:
+            dense = torch.stack([model(torch.tensor([s], device=device))
+                                 [0, -1] for s in seqs_i])
+            worst = max(worst, float((logits - dense).abs().max()))
+            check(bool(torch.isfinite(logits).all()),
+                  "non-finite decode logits")
     out = {"decode_steps": steps, "rows": b, "kernel_launches": launches,
            "layers": len(model.blocks), "dtype": "float32",
            "max_abs_err_vs_dense": worst, "atol": 1e-3,
@@ -770,6 +812,410 @@ def phase_split_path(cfg: dict, tree: dict, device: torch.device,
     check(worst <= 1e-3, f"split path vs dense forward: {worst} > 1e-3")
     return out
 
+
+# -- training: the flash kernels ------------------------------------------
+
+def _flash_inputs(b: int, t: int, h: int, hkv: int, d: int,
+                  dtype: torch.dtype, device: torch.device, seed: int):
+    """(q, k, v, do) on `device` in `dtype`: k/v made with hkv heads and
+    repeated to h as `attention.mha` does before its flash call."""
+    case = flash_case(b, t, t, h, d, seed)
+    q, k, v, do = (torch.from_numpy(case[x]).to(device) for x in FLASH_ARGS)
+    k, v = k[:, :, :hkv], v[:, :, :hkv]
+    k = k.repeat_interleave(h // hkv, dim=2)
+    v = v.repeat_interleave(h // hkv, dim=2)
+    return [x.to(dtype).contiguous() for x in (q, k, v, do)]
+
+
+def _flash_mode(mode: str, b: int, t: int, device: torch.device):
+    """(kwargs, q_seg, kv_seg, seed) of a causal check: plain causal,
+    causal over packed documents, or causal with dropout 0.1."""
+    kw = dict(causal=True)
+    segs = seed = None
+    if mode == "segments":
+        docs = [(t // 3, t // 4, t // 5), (t // 2,), (t // 7, t // 2),
+                (t // 5,) * 4]
+        segs = torch.from_numpy(np.stack(
+            [packed_segment_ids(docs[i % len(docs)], t)
+             for i in range(b)])).to(device)
+    if mode == "dropout":
+        kw["dropout_rate"] = 0.1
+        seed = torch.tensor([SEED], dtype=torch.int32, device=device)
+    return kw, segs, segs, seed
+
+
+def _flash_close(kernel: str, got, plain, atol: float, rtol: float,
+                 **info) -> float:
+    err = float((got.float() - plain).abs().max())
+    ratio = float(((got.float() - plain).abs()
+                   / (atol + rtol * plain.abs())).max())
+    emit({"phase": "flash_vs_plain", "kernel": kernel, **info,
+          "max_abs_err": err, "atol": atol, "rtol": rtol,
+          "worst_err_over_tol": ratio, "ok": ratio <= 1.0})
+    check(bool(torch.isfinite(got).all()), f"{kernel}: non-finite output")
+    check(ratio <= 1.0, f"{kernel} vs plain: {err} over atol {atol} + "
+                        f"rtol {rtol} ({info})")
+    return err
+
+
+def phase_flash_vs_plain(cfg: dict, device: torch.device) -> dict:
+    """Kernels 4, 5 and 6 each against its plain version on the same
+    inputs at the train phase's attention shape (cfg["flash_check"]: B 4,
+    T 2048, H 8, D 64 on the card), MHA and GQA 8:2 (k/v repeated as `mha` repeats them), causal,
+    causal over packed documents, and causal with dropout 0.1; f32 at
+    1e-5 (o, lse) and 1e-4 (dq, dk, dv), bf16 against the plain version
+    run in f32 on the same bf16 values at 2e-2 (absolute and relative:
+    the kernel rounds p, ds and g to bf16). The backward kernels take
+    the plain forward's o and lse, so each kernel is held alone. Then
+    GQA end to end: `mha` with 2 kv heads on the card against autograd
+    through the plain forward over the repeated heads. Returns the worst
+    error per kernel."""
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b, t, h, d = cfg["flash_check"]
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for hkv in (h, cfg["gqa_kv_heads"]):
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            otol = (1e-5, 1e-5) if f32 else (2e-2, 2e-2)
+            gtol = (1e-4, 1e-4) if f32 else (2e-2, 2e-2)
+            for mode in ("causal", "segments", "dropout"):
+                info = dict(heads=h, kv_heads=hkv, mode=mode, t=t, d=d,
+                            dtype=str(dtype).replace("torch.", ""))
+                q, k, v, do = _flash_inputs(b, t, h, hkv, d, dtype, device,
+                                            SEED + hkv)
+                kw, q_seg, kv_seg, seed = _flash_mode(mode, b, t, device)
+                kw["scale"] = d ** -0.5
+                plain = [x.float() for x in (q, k, v, do)]
+                o, lse = flash.flash_fwd(q, k, v, q_seg, kv_seg, seed, **kw)
+                o_ref, lse_ref = flash.flash_fwd_reference(
+                    *plain[:3], q_seg, kv_seg, seed, **kw)
+                sync()
+                worst["flash_fwd"] = max(
+                    worst["flash_fwd"],
+                    _flash_close("flash_fwd", o, o_ref, *otol, **info),
+                    _flash_close("flash_fwd", lse, lse_ref, *otol,
+                                 output="lse", **info))
+                o_in = o_ref.to(dtype)
+                args = (q, k, v, o_in, lse_ref, do, q_seg, kv_seg, seed)
+                ref = (*plain[:3], o_in.float(), lse_ref, plain[3], q_seg,
+                       kv_seg, seed)
+                dq = flash.flash_dq(*args, **kw)
+                dk, dv = flash.flash_dkv(*args, **kw)
+                sync()
+                worst["flash_dq"] = max(worst["flash_dq"], _flash_close(
+                    "flash_dq", dq, flash.flash_dq_reference(*ref, **kw),
+                    *gtol, **info))
+                dk_ref, dv_ref = flash.flash_dkv_reference(*ref, **kw)
+                worst["flash_dkv"] = max(
+                    worst["flash_dkv"],
+                    _flash_close("flash_dkv", dk, dk_ref, *gtol,
+                                 output="dk", **info),
+                    _flash_close("flash_dkv", dv, dv_ref, *gtol,
+                                 output="dv", **info))
+    # GQA end to end through mha (kernels on the card), f32
+    hkv = cfg["gqa_kv_heads"]
+    case = flash_case(b, t, t, h, d, SEED + 3)
+    leaves = [torch.from_numpy(case["q"]).to(device)] + [
+        torch.from_numpy(case[x][:, :, :hkv]).to(device).contiguous()
+        for x in "kv"]
+    do = torch.from_numpy(case["do"]).to(device)
+    outs = []
+    for through_mha in (True, False):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        if through_mha:
+            o = attention.mha(*xs, causal=True)
+        else:
+            rep = [xs[0]] + [x.repeat_interleave(h // hkv, dim=2)
+                             for x in xs[1:]]
+            o, _ = flash.flash_fwd_reference(*rep, scale=d ** -0.5,
+                                             causal=True)
+        o.backward(do)
+        outs.append([o.detach()] + [x.grad for x in xs])
+    sync()
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+        _flash_close("mha_gqa", got, want, *((1e-5, 1e-5) if name == "o"
+                                              else (1e-4, 1e-4)),
+                     output=name, heads=h, kv_heads=hkv, t=t, d=d,
+                     dtype="float32")
+    return worst
+
+
+def flash_cost(q, k, vis_pairs: int, which: str) -> Tuple[float, float]:
+    """(bytes, FLOPs) kernel `which` must at least move and do: each
+    operand read once and each output written once (lse [B, H, Tq] f32),
+    and per visible (q, k) pair and head 4*D FLOPs forward (q.k, p.v),
+    6*D for dq (s, dp, dq), 8*D for dk/dv (s, dv, dp, dk)."""
+    b, t_q, h, d = q.shape
+    e = q.element_size()
+    nq, nk = q.numel(), k.numel()
+    lse = 4 * b * h * t_q
+    if which == "fwd":
+        nbytes, per = e * (2 * nq + 2 * nk) + lse, 4
+    elif which == "dq":
+        nbytes, per = e * (4 * nq + 2 * nk) + lse, 6
+    else:
+        nbytes, per = e * (3 * nq + 4 * nk) + lse, 8
+    return float(nbytes), float(per * d * vis_pairs)
+
+
+def phase_flash_time(cfg: dict, device: torch.device, card: dict) -> dict:
+    """Kernels 4, 5 and 6 at the train phase's attention shape (B 4,
+    H 8, T 2048, D 64, bf16, causal): each kernel, its plain version and
+    its bound; the library yardstick is F.scaled_dot_product_attention
+    (forward for kernel 4; its backward, which gives dq, dk and dv in one
+    call, beside kernels 5 + 6)."""
+    cuda = device.type == "cuda"
+    b, t, h, d = cfg["flash_time"]
+    dtype = torch.bfloat16 if cuda else torch.float32
+    q, k, v, do = _flash_inputs(b, t, h, h, d, dtype, device, SEED + 11)
+    kw = dict(scale=d ** -0.5, causal=True)
+    o, lse = flash.flash_fwd(q, k, v, **kw)
+    pairs = int(flash.visible_pairs(b, t, t, True, None, device=device)
+                .sum()) * b * h
+    info = dict(batch=b, t=t, heads=h, d=d, causal=True,
+                visible_pairs=pairs)
+    sdpa_fwd = sdpa_bwd = None
+    if cuda:
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        sdpa_fwd = time_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qh, kh, vh,
+                                                         is_causal=True),
+                           cfg["time_iters"], 10, cuda)
+        leaves = [x.clone().requires_grad_(True) for x in (qh, kh, vh)]
+        oh = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            oh, leaves, doh, retain_graph=True), cfg["time_iters"], 10, cuda)
+    iters = cfg["flash_iters"]
+    out = {
+        "flash_fwd": _timed(
+            "flash_fwd", lambda: flash.flash_fwd(q, k, v, **kw),
+            lambda: flash.flash_fwd_reference(q, k, v, **kw),
+            flash_cost(q, k, pairs, "fwd"), dtype, cfg, cuda, card,
+            library_ms=sdpa_fwd, iters=iters, **info),
+        "flash_dq": _timed(
+            "flash_dq", lambda: flash.flash_dq(q, k, v, o, lse, do, **kw),
+            lambda: flash.flash_dq_reference(q, k, v, o, lse, do, **kw),
+            flash_cost(q, k, pairs, "dq"), dtype, cfg, cuda, card,
+            library_ms=sdpa_bwd, iters=iters, **info),
+        "flash_dkv": _timed(
+            "flash_dkv", lambda: flash.flash_dkv(q, k, v, o, lse, do, **kw),
+            lambda: flash.flash_dkv_reference(q, k, v, o, lse, do, **kw),
+            flash_cost(q, k, pairs, "dkv"), dtype, cfg, cuda, card,
+            library_ms=sdpa_bwd, iters=iters, **info)}
+    emit({"phase": "kernel_time", "kernel": "flash_dq+flash_dkv",
+          "ms": out["flash_dq"]["ms"] + out["flash_dkv"]["ms"],
+          "bound_ms": out["flash_dq"]["bound_ms"]
+          + out["flash_dkv"]["bound_ms"],
+          "library_ms": sdpa_bwd, "note": SDPA_BWD, **info,
+          "device": card["kind"], "nvidia_smi": card["smi"]})
+    return out
+
+
+def lm_loss(module, batch, generator, training):
+    """Mean fused cross-entropy over the pre-head hidden states, the
+    head weights cast to the model's dtype (examples/train_causal_lm.py)."""
+    inp, tgt = batch
+    hid = module(inp, return_hidden=True, generator=generator)
+    w, bias = module.head_weights()
+    return linear_cross_entropy(
+        hid, w.to(hid.dtype), tgt,
+        None if bias is None else bias.to(hid.dtype)).mean(), {}
+
+
+def _lm_batches(cfg: dict, n: int, batch: int, device: torch.device,
+                seed: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    rng = np.random.default_rng(seed)
+    return [tuple(torch.from_numpy(x).to(device) for x in
+                  lm_stream(rng, batch, cfg["train_seq"], cfg["vocab"]))
+            for _ in range(n)]
+
+
+def _lm(cfg: dict, tree: dict, dtype: torch.dtype,
+        device: torch.device) -> CausalLM:
+    model = CausalLM(vocab=cfg["vocab"], max_len=cfg["max_len"], dtype=dtype,
+                     device=device, **cfg["lm"])
+    return load_jax_params(model, tree)
+
+
+def phase_train(cfg: dict, tree: dict, device: torch.device,
+                card: dict) -> dict:
+    """The training path: `Trainer` with Adam (lr cfg["train_lr"]) on a
+    bf16 CausalLM under the fused cross-entropy on a batch of the
+    learnable stream of examples/train_causal_lm.py (next token =
+    token + 3 mod V), which trains, as that example does, on one batch
+    every step: one warm-up step on another batch, then the counted
+    steps. Checks: finite losses that fall; one launch of each flash
+    kernel per layer per step and no other launch."""
+    cuda = device.type == "cuda"
+    steps, batch = cfg["train_steps"], cfg["train_batch"]
+    model = _lm(cfg, tree, cfg["dtype"], device)
+    trainer = Trainer(model, Adam(model.parameters(), cfg["train_lr"]),
+                      lm_loss, seed=SEED)
+    warm, fixed = _lm_batches(cfg, 2, batch, device, SEED + 9)
+    trainer.train_step(warm)
+    _reset_launches()                               # the path's counts
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = trainer.train_step(fixed)
+        losses.append(float(out["loss"]))           # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    layers = cfg["lm"]["num_layers"]
+    launches = _expect_launches(FLASH_KERNELS, steps, layers, cuda)
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tokens = batch * cfg["train_seq"]
+    med = float(np.median(step_ms))
+    out = {"steps": steps, "batch": batch, "seq": cfg["train_seq"],
+           "dtype": str(cfg["dtype"]).replace("torch.", ""),
+           "lr": cfg["train_lr"], "losses": losses,
+           "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": tokens / med * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "kernel_launches": launches, "layers": layers,
+           "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "train", **out})
+    return out
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """FlashCore through the plain versions on the card: the oracle of
+    train_vs_plain. The kernels come back on exit."""
+    saved = (flash.flash_fwd, flash.flash_dq, flash.flash_dkv)
+    flash.flash_fwd = flash.flash_fwd_reference
+    flash.flash_dq = flash.flash_dq_reference
+    flash.flash_dkv = flash.flash_dkv_reference
+    try:
+        yield
+    finally:
+        flash.flash_fwd, flash.flash_dq, flash.flash_dkv = saved
+
+
+@contextlib.contextmanager
+def dense_attention():
+    """`mha` through its dense reference path on the card (softmax over
+    masked einsum scores): train_vs_plain's control, another float32
+    order of the same attention with no flash code at all."""
+    saved = attention.would_use_flash
+    attention.would_use_flash = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        attention.would_use_flash = saved
+
+
+def _noise_only(plain: dict, dense: dict) -> dict:
+    """The tensors whose gradient is 0 up to rounding, by one rule: the
+    two runs with no kernel in them (flash's plain versions, and `mha`'s
+    dense path) disagree on it by more than half its norm, so float32
+    leaves it no digit to hold. The key biases are such: a key bias adds
+    the same q.b to every score of a row, which softmax ignores, so their
+    exact gradient is 0. Per tensor: its plain gradient's norm and
+    largest |w|, and the plain-vs-dense norm gap."""
+    out = {}
+    for n, w in plain.items():
+        norm, gap = float(w.norm()), float((dense[n] - w).norm())
+        if gap > 0.5 * norm:
+            out[n] = {"norm": norm, "max_abs": float(w.abs().max()),
+                      "dense_vs_plain_norm": gap}
+    return out
+
+
+def _grad_gap(got: dict, want: dict, skip) -> dict:
+    """Per tensor, |g - w| over its bar 1e-2 |w| + 1e-6 * (the largest
+    |w| of the model) * sqrt(size), in norm: the worst ratio, its tensor
+    and that tensor's |g - w| / |w|; and, over the tensors not in `skip`
+    (0 up to rounding), the worst elementwise |g - w| over its tensor's
+    largest |w|, and its tensor."""
+    top = max(float(w.abs().max()) for w in want.values())
+    out = {"grad_worst_over_bar": 0.0, "grad_worst_param": None,
+           "grad_worst_norm_rel_err": 0.0,
+           "grad_worst_elem_err_over_tensor_max": 0.0,
+           "grad_worst_elem_param": None}
+    for n, w in want.items():
+        diff = float((got[n] - w).norm())
+        r = diff / (1e-2 * float(w.norm()) + 1e-6 * top * w.numel() ** 0.5)
+        if r > out["grad_worst_over_bar"]:
+            out.update(grad_worst_over_bar=r, grad_worst_param=n,
+                       grad_worst_norm_rel_err=diff / float(w.norm()))
+        elem = float((got[n] - w).abs().max()) / float(w.abs().max())
+        if n not in skip and elem > out["grad_worst_elem_err_over_tensor_max"]:
+            out.update(grad_worst_elem_err_over_tensor_max=elem,
+                       grad_worst_elem_param=n)
+    return out
+
+
+def phase_train_vs_plain(cfg: dict, tree: dict,
+                         device: torch.device) -> None:
+    """One f32 Trainer step at full width through the kernels, and the
+    same step (same weights, same batch) through their plain versions on
+    the card, and a control through `mha`'s dense reference path. The
+    runs differ only in the attention's float32 summation order. The
+    loss must agree within 1e-4 relative, and every gradient within 1e-2
+    of its norm plus a floor of 1e-6 of the model's largest gradient
+    per element (the key biases' gradient is 0 in exact arithmetic, so
+    float32 noise on every side), for the kernels and for the control
+    alike. Why a norm bar, and why 1e-2: where an FFN pre-activation
+    lies within float32 noise of 0, two runs take the ReLU on opposite
+    sides, which moves one token's whole contribution to every gradient
+    below it (the phase counts these flips). The control, with no flash
+    code, must land within the same bar, so the bar holds float32's own
+    spread and no more; a kernel fault (a mask, the scale, a dropout bit)
+    moves every gradient by O(1). The tight oracle of each kernel is
+    flash_vs_plain's, per kernel output."""
+    cuda = device.type == "cuda"
+    batch = _lm_batches(cfg, 1, cfg["tvp_batch"], device, SEED + 10)[0]
+    layers = cfg["lm"]["num_layers"]
+    runs = {}
+    for name, ctx, launched in (
+            ("kernels", contextlib.nullcontext(), 1),
+            ("plain", plain_flash(), 0), ("dense", dense_attention(), 0)):
+        model = _lm(cfg, tree, torch.float32, device)
+        trainer = Trainer(model, Adam(model.parameters(), cfg["train_lr"]),
+                          lm_loss, seed=SEED)
+        gates = []
+        hooks = [blk.ffn.fc1.register_forward_hook(
+            lambda mod, inp, out: gates.append(out.detach() > 0))
+            for blk in model.blocks]
+        _reset_launches()
+        with ctx:
+            loss = float(trainer.train_step(batch)["loss"])
+        for hook in hooks:
+            hook.remove()
+        _expect_launches(FLASH_KERNELS, launched, layers, cuda)
+        runs[name] = (loss, {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}, gates)
+        del model, trainer
+    lp, gp, mp = runs["plain"]
+    noise = _noise_only(gp, runs["dense"][1])
+    out = {}
+    for name in ("kernels", "dense"):
+        loss, grads, gates = runs[name]
+        out[name] = {"loss": loss, "loss_rel_err": abs(loss - lp) / abs(lp),
+                     **_grad_gap(grads, gp, noise),
+                     "relu_gate_flips": sum(int((a != b).sum())
+                                            for a, b in zip(gates, mp))}
+    ok = all(r["loss_rel_err"] <= 1e-4 and r["grad_worst_over_bar"] <= 1.0
+             for r in out.values())
+    emit({"phase": "train_vs_plain", "dtype": "float32",
+          "batch": cfg["tvp_batch"], "seq": cfg["train_seq"],
+          "loss_plain": lp, "kernels_vs_plain": out["kernels"],
+          "control_dense_vs_plain": out["dense"], "grad_bar": 1e-2,
+          "grad_max_abs": max(float(w.abs().max()) for w in gp.values()),
+          "zero_up_to_rounding": noise, "ok": ok})
+    for name, r in out.items():
+        check(r["loss_rel_err"] <= 1e-4,
+              f"train step loss {name} {r['loss']} vs plain {lp}")
+        check(r["grad_worst_over_bar"] <= 1.0,
+              f"{name}: gradient {r['grad_worst_param']} off by "
+              f"{r['grad_worst_over_bar']} x its bar")
 
 # -- configurations -------------------------------------------------------
 
@@ -797,7 +1243,14 @@ def full_config() -> dict:
         # compresses, so nothing spills
         int8=dict(num_blocks=256, compress_blocks=512, max_new=16,
                   filler_len=300, max_filler_waves=4),
-        split_prompts=(40, 23), split_steps=4)
+        split_prompts=(40, 23), split_steps=4,
+        # flash checks and times (B, T, H, D): the train phase's attention
+        flash_check=(4, 2048, 8, 64), flash_time=(4, 2048, 8, 64),
+        flash_iters=20,
+        # train: B 4 x T 2048 bf16, Adam at the lr of
+        # examples/train_causal_lm.py; train_vs_plain: one f32 step
+        train_steps=10, train_batch=4, train_seq=2048, train_lr=3e-3,
+        tvp_batch=4)
 
 
 def tiny_config() -> dict:
@@ -815,7 +1268,10 @@ def tiny_config() -> dict:
         paged_time_lens=[30, 45, 60, 75],
         int8=dict(num_blocks=24, compress_blocks=64, max_new=4,
                   filler_len=60, max_filler_waves=6),
-        split_prompts=(20, 13), split_steps=3)
+        split_prompts=(20, 13), split_steps=3,
+        flash_check=(2, 40, 8, 8), flash_time=(1, 48, 8, 8), flash_iters=2,
+        train_steps=10, train_batch=2, train_seq=32, train_lr=3e-3,
+        tvp_batch=2)
 
 
 def main(argv=None) -> int:
@@ -841,7 +1297,9 @@ def main(argv=None) -> int:
     phase_build(cfg, cuda)
     errs = phase_kernel_vs_plain(cfg, device)
     phase_mixed_vs_promote(cfg, device)
+    errs.update(phase_flash_vs_plain(cfg, device))
     timing = phase_kernel_time(cfg, device, card)
+    timing.update(phase_flash_time(cfg, device, card))
     lm = cfg["lm"]
     tree = causal_lm_tree(SEED, cfg["vocab"], lm["model_dim"],
                           lm["num_heads"], lm["num_layers"], lm["ffn_dim"])
@@ -850,6 +1308,9 @@ def main(argv=None) -> int:
              "ragged_paged_attention_mixed": phase_engine_int8(
                  cfg, tree, device, card),
              "paged_attention": phase_split_path(cfg, tree, device, card)}
+    train = phase_train(cfg, tree, device, card)
+    paths.update(dict.fromkeys(FLASH_KERNELS, train))
+    phase_train_vs_plain(cfg, tree, device)
 
     rows = []
     for name, (source, replaces, _) in KERNEL_ROWS.items():
@@ -861,7 +1322,7 @@ def main(argv=None) -> int:
             "launched": paths[name]["kernel_launches"][name],
             "checked": True, "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit({"kernels": rows})
     if cuda:
         emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

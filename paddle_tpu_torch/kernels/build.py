@@ -38,6 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
     "paged_attention": "paged_attention.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

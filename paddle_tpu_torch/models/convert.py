@@ -1,4 +1,4 @@
-"""Carry a JAX CausalLM's weights into the port's CausalLM.
+"""Carry a CausalLM's weights between the JAX package and the port.
 
 `load_jax_params(model, tree)` takes the JAX `variables` as nested
 dicts of numpy arrays (what `jax.device_get(variables)` gives; no JAX
@@ -16,6 +16,11 @@ The port's module tree mirrors the JAX one (`blocks.{i}` is JAX's
 `blocks_{i}`), and both keep Linear weights as [in, out], so every
 tensor copies as it is. A missing or extra key, a wrong shape, or a
 non-empty collection other than `params` raises.
+
+The reverse, `to_jax_params(model)`, gives the port's parameters as
+such a tree, and `to_jax_opt_state(model, optimizer)` an optimizer's
+state in JAX's layout: {"step": int32, "slots": {name: tree}} with each
+slot tree keyed like `params` (Adam's "m" and "v").
 """
 
 from __future__ import annotations
@@ -68,3 +73,38 @@ def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
         for path, param in want.items():
             param.copy_(torch.tensor(np.asarray(flat[path], np.float32)))
     return model
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        *heads, leaf = path.split("/")
+        for key in heads:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def to_jax_params(model: nn.Module) -> Dict:
+    """The model's parameters as a JAX `variables` tree of float32 numpy
+    arrays: {"params": {...}} under the JAX paths."""
+    return _unflatten({jax_path(n): p.detach().float().cpu().numpy()
+                       for n, p in model.named_parameters()})
+
+
+def to_jax_opt_state(model: nn.Module, optimizer) -> Dict:
+    """An optimizer's state in JAX's layout: {"step": int32, "slots":
+    {slot: tree}}, each tree keyed like `variables["params"]`. Slots a
+    parameter has not created yet (before the first step) are zeros."""
+    names = sorted({k for st in optimizer.state.values() for k in st})
+    slots = {}
+    for slot in names:
+        flat = {}
+        for n, p in model.named_parameters():
+            st = optimizer.state.get(p, {})
+            value = (st[slot] if slot in st
+                     else torch.zeros(p.shape, dtype=torch.float32))
+            flat[jax_path(n)] = value.detach().float().cpu().numpy()
+        slots[slot] = _unflatten(flat)["params"]
+    return {"step": np.int32(optimizer.step_count), "slots": slots}

@@ -8,8 +8,12 @@ Module and parameter names mirror the JAX module tree so a JAX
 
 Three paths:
 
-- `CausalLM.forward` — dense logits with plain causal attention, the
-  oracle the tests hold the serve steps against.
+- `CausalLM.forward` — the dense training forward (logits, or the
+  pre-head hidden states for the fused cross-entropy), with
+  `segment_ids`, `positions` and dropout drawn from the caller's
+  `torch.Generator`. Attention goes through `mha`: the flash kernels
+  on the card, plain causal attention on the CPU. It is also the oracle
+  the tests hold the serve steps against.
 - `CausalLM.ragged_step_paged` — ONE mixed prefill+decode serve step
   over the flat ragged packing (the engine's path). With the engine's
   int8 tier on, each layer's int8 pools and scales join its attention
@@ -34,7 +38,7 @@ from torch import nn
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.kernels import paged_attention as paged
-from paddle_tpu_torch.kernels.attention import causal_attention
+from paddle_tpu_torch.kernels.attention import mha
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -106,11 +110,19 @@ class MultiHeadAttention(nn.Module):
                 self.v_proj(x).reshape(*lead, self.num_kv_heads,
                                        self.head_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Dense causal self-attention: x [B, T, D] -> [B, T, D]."""
+    def forward(self, x: torch.Tensor, segment_ids=None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Dense causal self-attention (JAX forward without `cache`,
+        transformer.py:129-184): x [B, T, D] -> [B, T, D]. segment_ids
+        [B, T] keeps attention inside each packed document; in training,
+        attention dropout at this layer's rate draws from `generator`."""
         b, t = x.shape[:2]
         qh, kh, vh = self._project(x)
-        out = causal_attention(qh, kh, vh)
+        drop = self.training and self.drop.rate > 0
+        out = mha(qh, kh, vh, causal=True, segment_ids=segment_ids,
+                  generator=generator if drop else None,
+                  dropout_rate=self.drop.rate if self.training else 0.0)
         return self.out_proj(out.reshape(b, t, self.model_dim))
 
     @staticmethod
@@ -196,8 +208,10 @@ class FeedForward(nn.Module):
         self.fc2 = Linear(hidden_dim, model_dim, dtype=dtype, device=device)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.drop(torch.relu(self.fc1(x))))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return self.fc2(self.drop(torch.relu(self.fc1(x)), generator))
 
 
 class CausalBlock(nn.Module):
@@ -218,13 +232,18 @@ class CausalBlock(nn.Module):
         self.ln2 = LayerNorm(model_dim, device=device)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop(self.attn(self.ln1(x)))
-        return x + self.drop(self.ffn(self.ln2(x)))
+    def forward(self, x: torch.Tensor, segment_ids=None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return self._ffn_residual(x, self.attn(
+            self.ln1(x), segment_ids=segment_ids, generator=generator),
+            generator)
 
-    def _ffn_residual(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop(h)
-        return x + self.drop(self.ffn(self.ln2(x)))
+    def _ffn_residual(self, x: torch.Tensor, h: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        x = x + self.drop(h, generator)
+        return x + self.drop(self.ffn(self.ln2(x), generator), generator)
 
     def ragged_step_paged(self, x, k_pool, v_pool, block_tables,
                           context_lens, q_starts, tile_rows, tile_offs,
@@ -252,7 +271,8 @@ class CausalLM(nn.Module):
 
     tie_embeddings=True (default) shares the token table with the
     output head (Embedding.attend). `device` defaults to the CUDA card
-    (device.resolve_device): without one, pass device="cpu"."""
+    (device.resolve_device): without one, pass device="cpu". The model
+    starts in eval mode; `Trainer` switches it to training for a step."""
 
     def __init__(self, vocab: int, model_dim: int = 512,
                  num_heads: int = 8, num_layers: int = 6,
@@ -287,16 +307,44 @@ class CausalLM(nn.Module):
         return (self.embed.attend(x) if self.tie_embeddings
                 else self.head(x))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, T] -> logits [B, T, V] (dense, plain attention)."""
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
+                segment_ids=None, positions: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """tokens [B, T] -> logits [B, T, V], or the pre-head hidden
+        states [B, T, D] with `return_hidden` (feed
+        ops.fused_ce.linear_cross_entropy with `head_weights()`).
+
+        segment_ids [B, T]: packed documents; attention never crosses a
+        boundary. Pair it with `positions` [B, T] (position within each
+        document) so the encoding restarts per document; the default is
+        0..T-1. Positions index the encoding as JAX's gather does
+        (transformer.py:664): a negative one counts from the end, and
+        the result is clamped to [0, max_len). In training, every
+        dropout draws from `generator`."""
         t = tokens.shape[1]
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
-        x = self.embed(tokens) * math.sqrt(self.model_dim)
-        x = self.drop(x + self.pe[:t].to(x.dtype))
+        x = self.embed(tokens.long()) * math.sqrt(self.model_dim)
+        if positions is None:
+            pe = self.pe[:t]
+        else:
+            positions = positions.long()
+            pe = self.pe[self._clip(torch.where(
+                positions < 0, positions + self.max_len, positions))]
+        x = self.drop(x + pe.to(x.dtype), generator)
         for blk in self.blocks:
-            x = blk(x)
-        return self._head(self.ln_f(x))
+            x = blk(x, segment_ids=segment_ids, generator=generator)
+        x = self.ln_f(x)
+        return x if return_hidden else self._head(x)
+
+    def head_weights(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """([D, V] weight, bias or None) for linear_cross_entropy: the
+        tied table transposed, or the untied head's parameters
+        (transformer.py:676). Live parameters, so gradients flow."""
+        if self.tie_embeddings:
+            return self.embed.weight.t(), None
+        return self.head.weight, self.head.bias
 
     def ragged_step_paged(self, tokens: torch.Tensor, positions: torch.Tensor,
                           pools: Pools, block_tables: torch.Tensor,

@@ -9,8 +9,9 @@ across unchanged (models/convert.py):
   `x @ table.T`.
 - `LayerNorm` computes in float32 with eps 1e-5 and returns the input
   dtype; its parameters are named `scale` and `bias` as in JAX.
-- `Dropout` is the identity in eval mode (the upscale-in-train
-  convention when training).
+- `Dropout` is the identity in eval mode and upscale-in-train dropout
+  when training, drawing its bits from the `torch.Generator` the caller
+  passes (never from PyTorch's global RNG).
 
 Parameters are stored in float32, as JAX's `param_dtype` does, and are
 cast to the compute dtype at each matmul.
@@ -21,7 +22,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 
@@ -90,13 +90,24 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity in eval mode; upscale-in-train dropout when training."""
+    """Identity in eval mode; upscale-in-train dropout when training
+    (JAX Dropout, nn/layers.py:474): keep with probability 1 - rate and
+    scale the kept values by 1 / (1 - rate). The keep bits come from
+    `generator`, which training with rate > 0 requires (JAX's
+    `cx.rng()`); the bits differ from JAX's bernoulli draw."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        return F.dropout(x, self.rate, training=True)
+        if generator is None:
+            raise ValueError("Dropout in training needs a torch.Generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -280,3 +280,40 @@ def write_serving_export(path: str, tree: Dict, serve_meta: Dict) -> str:
     with open(os.path.join(path, "signature.json"), "w") as f:
         json.dump({"version": 1, "serve": dict(serve_meta)}, f, indent=1)
     return path
+
+
+FLASH_ARGS = ("q", "k", "v", "do")
+
+
+def flash_case(b: int, t_q: int, t_k: int, h: int, d: int,
+               seed: int = 0) -> Dict[str, np.ndarray]:
+    """Operands of one flash attention call and its backward (keys in
+    FLASH_ARGS order), float32 N(0, 1): q and the cotangent do
+    [B, Tq, H, D], k/v [B, Tk, H, D]."""
+    rng = np.random.default_rng(seed)
+    return {"q": rng.standard_normal((b, t_q, h, d), np.float32),
+            "k": rng.standard_normal((b, t_k, h, d), np.float32),
+            "v": rng.standard_normal((b, t_k, h, d), np.float32),
+            "do": rng.standard_normal((b, t_q, h, d), np.float32)}
+
+
+def packed_segment_ids(lengths: Sequence[int], t: int) -> np.ndarray:
+    """One row of segment ids [t] int32: consecutive documents of
+    `lengths`, the rest of the row a segment of its own."""
+    ids = np.full((t,), len(lengths), np.int32)
+    pos = 0
+    for i, n in enumerate(lengths):
+        ids[pos:pos + n] = i
+        pos += n
+    return ids
+
+
+def lm_stream(rng: np.random.Generator, batch: int, seq: int,
+              vocab: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The learnable token stream of examples/train_causal_lm.py:36-40
+    (next token = token + 3 mod vocab): (inputs, targets) [batch, seq]
+    int32."""
+    start = rng.integers(0, vocab, (batch, 1))
+    rows = ((start + np.arange(seq + 1)[None, :] * 3) % vocab).astype(
+        np.int32)
+    return rows[:, :-1], rows[:, 1:]

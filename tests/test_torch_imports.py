@@ -33,6 +33,11 @@ def test_scan_covers_the_package():
     assert "paddle_tpu_torch/kernels/paged_attention.py" in names
     assert "paddle_tpu_torch/quant/int8_compute.py" in names
     assert "paddle_tpu_torch/io/checkpoint.py" in names
+    for mod in ("kernels/flash.py", "kernels/attention.py",
+                "ops/fused_ce.py", "optim/optimizer.py",
+                "optim/lr_schedules.py", "core/executor.py",
+                "models/convert.py", "nn/layers.py"):
+        assert f"paddle_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 
 
@@ -55,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import paddle_tpu_torch.engine, paddle_tpu_torch.models, "
             "paddle_tpu_torch.kernels.build, paddle_tpu_torch.testing, "
-            "paddle_tpu_torch.quant.int8_compute, paddle_tpu_torch.io; "
+            "paddle_tpu_torch.quant.int8_compute, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.kernels.flash, paddle_tpu_torch.ops, "
+            "paddle_tpu_torch.optim, paddle_tpu_torch.core; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -13,13 +13,19 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.core import Trainer
 from paddle_tpu_torch.engine import ServeEngine
+from paddle_tpu_torch.kernels import attention, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
-from paddle_tpu_torch.testing import (PAGED_ARGS, QUANT_ARGS, RAGGED_ARGS,
-                                      causal_lm_tree, int8_blocks,
-                                      paged_case, ragged_case)
+from paddle_tpu_torch.ops import linear_cross_entropy
+from paddle_tpu_torch.optim import Adam
+from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
+                                      RAGGED_ARGS, causal_lm_tree,
+                                      flash_case, int8_blocks, lm_stream,
+                                      packed_segment_ids, paged_case,
+                                      ragged_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -282,3 +288,232 @@ def test_int8_tier_engine_on_card_batched_equals_solo():
         alone = ServeEngine(model, registry=MetricsRegistry(), **kw)
         warm(alone)
         assert alone.generate([prompt], max_new_tokens=6)[0] == stream
+
+
+# -- flash attention: kernels 4 (forward), 5 (dq) and 6 (dk/dv) ---------
+
+def _flash_mode(mode, t, b):
+    """(kwargs of the flash functions, q_seg, kv_seg, seed) of a mask
+    mode at sequence length t; every query sees at least one key."""
+    kw, segs, seed = {}, (None, None), None
+    if mode in ("causal", "dropout"):
+        kw["causal"] = True
+    if mode == "kv_len":
+        kw["kv_len"] = max(1, (2 * t) // 3)
+    if mode in ("segments", "dropout"):
+        rows = [packed_segment_ids((t // 3, t // 2), t),
+                packed_segment_ids((t - t // 4,), t)]
+        ids = torch.from_numpy(np.stack(rows[:b])).cuda()
+        segs = (ids, ids)
+    if mode == "dropout":
+        kw["dropout_rate"] = 0.1
+        seed = torch.tensor([-123456789], dtype=torch.int32, device="cuda")
+    return kw, segs, seed
+
+
+FLASH_MODES = ("full", "causal", "kv_len", "segments", "dropout")
+
+
+def _check_flash_kernels(t, d, dtype, mode, b=2, h=2):
+    """Each of the three kernels against its plain version on the same
+    inputs: f32 at 1e-5 (o, lse) and 1e-4 (dq, dk, dv); bf16 against the
+    plain version run in f32 on the same bf16 values at 2e-2 (absolute
+    and relative: the kernel rounds p, ds and g to bf16 on the way)."""
+    dt = getattr(torch, dtype)
+    case = flash_case(b, t, t, h, d, seed=t + d)
+    q, k, v, do = (torch.from_numpy(case[x]).cuda().to(dt)
+                   for x in FLASH_ARGS)
+    kw, (q_seg, kv_seg), seed = _flash_mode(mode, t, b)
+    kw["scale"] = d ** -0.5
+    otol = dict(atol=1e-5, rtol=1e-5) if dt == torch.float32 else dict(
+        atol=2e-2, rtol=2e-2)
+    gtol = dict(atol=1e-4, rtol=1e-4) if dt == torch.float32 else otol
+    f = [x.float() for x in (q, k, v, do)]
+    before = (flash.flash_fwd.launches, flash.flash_dq.launches,
+              flash.flash_dkv.launches)
+    o, lse = flash.flash_fwd(q, k, v, q_seg, kv_seg, seed, **kw)
+    o_ref, lse_ref = flash.flash_fwd_reference(*f[:3], q_seg, kv_seg, seed,
+                                               **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dt and lse.shape == (b, h, t)
+    torch.testing.assert_close(o.float(), o_ref, **otol)
+    torch.testing.assert_close(lse, lse_ref, **otol)
+    o_in = o_ref.to(dt)
+    args = (q, k, v, o_in, lse_ref, do, q_seg, kv_seg, seed)
+    ref_args = (*f[:3], o_in.float(), lse_ref, f[3], q_seg, kv_seg, seed)
+    dq = flash.flash_dq(*args, **kw)
+    dk, dv = flash.flash_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        dq.float(), flash.flash_dq_reference(*ref_args, **kw), **gtol)
+    dk_ref, dv_ref = flash.flash_dkv_reference(*ref_args, **kw)
+    torch.testing.assert_close(dk.float(), dk_ref, **gtol)
+    torch.testing.assert_close(dv.float(), dv_ref, **gtol)
+    assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 128, 200, 256])
+@pytest.mark.parametrize("t", [1, 17, 64, 300, 1024])
+def test_flash_kernels_match_plain_causal(t, d, dtype):
+    _need_card()
+    _check_flash_kernels(t, d, dtype, "causal")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [17, 300, 1024])
+@pytest.mark.parametrize("mode", FLASH_MODES)
+def test_flash_kernels_match_plain_masks(mode, t, dtype):
+    _need_card()
+    _check_flash_kernels(t, 64, dtype, mode)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_kernels_match_plain_segment_pair(d):
+    """Cross lengths (Tq != Tk) with a (q_seg, kv_seg) pair."""
+    _need_card()
+    case = flash_case(1, 200, 333, 2, d, seed=3)
+    q, k, v, do = (torch.from_numpy(case[x]).cuda() for x in FLASH_ARGS)
+    q_seg = torch.from_numpy(packed_segment_ids((90, 60), 200)[None]).cuda()
+    kv_seg = torch.from_numpy(
+        packed_segment_ids((100, 133), 333)[None]).cuda()
+    kw = dict(scale=d ** -0.5)
+    o, lse = flash.flash_fwd(q, k, v, q_seg, kv_seg, **kw)
+    o_ref, lse_ref = flash.flash_fwd_reference(q, k, v, q_seg, kv_seg, **kw)
+    torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    args = (q, k, v, o_ref, lse_ref, do, q_seg, kv_seg)
+    torch.testing.assert_close(flash.flash_dq(*args, **kw),
+                               flash.flash_dq_reference(*args, **kw),
+                               atol=1e-4, rtol=1e-4)
+    for got, want in zip(flash.flash_dkv(*args, **kw),
+                         flash.flash_dkv_reference(*args, **kw)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", FLASH_MODES)
+def test_flash_core_grads_match_autograd_of_plain_forward(mode):
+    """FlashCore (kernel 4 forward, kernels 5 and 6 backward) against
+    PyTorch autograd through the plain forward, f32 at 1e-4."""
+    _need_card()
+    t, d, b = 300, 64, 2
+    case = flash_case(b, t, t, 2, d, seed=7)
+    kw, (q_seg, kv_seg), seed = _flash_mode(mode, t, b)
+    do = torch.from_numpy(case["do"]).cuda()
+    leaves = [torch.from_numpy(case[x]).cuda().requires_grad_(True)
+              for x in "qkv"]
+    o = flash.FlashCore.apply(*leaves, q_seg, kv_seg, seed, d ** -0.5,
+                              kw.get("causal", False), kw.get("kv_len"),
+                              kw.get("dropout_rate", 0.0))
+    o.backward(do)
+    refs = [torch.from_numpy(case[x]).cuda().requires_grad_(True)
+            for x in "qkv"]
+    o_ref, _ = flash.flash_fwd_reference(*refs, q_seg, kv_seg, seed,
+                                         scale=d ** -0.5, **kw)
+    o_ref.backward(do)
+    torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
+    for got, want in zip(leaves, refs):
+        torch.testing.assert_close(got.grad, want.grad, atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 40, 80])
+def test_mha_sends_every_kernel_head_dim_to_flash(d):
+    """`mha`'s gate on the card is what the kernels take (a multiple of 8
+    up to 256), not JAX's multiple of 32: head dims 16, 40 and 80 launch
+    kernel 4 and match the reference path."""
+    _need_card()
+    case = flash_case(2, 100, 100, 4, d, seed=d)
+    q, k, v = (torch.from_numpy(case[x]).cuda() for x in "qkv")
+    before = flash.flash_fwd.launches
+    o = attention.mha(q, k, v, causal=True)
+    assert flash.flash_fwd.launches == before + 1
+    mask = flash.visible_pairs(2, 100, 100, True, None, device="cuda")
+    want = attention.reference_attention(q, k, v, mask=mask)
+    torch.testing.assert_close(o, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_are_deterministic(dtype):
+    """No atomics: two launches give the same bytes."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    case = flash_case(2, 300, 300, 4, 64, seed=9)
+    q, k, v, do = (torch.from_numpy(case[x]).cuda().to(dt)
+                   for x in FLASH_ARGS)
+    kw, (q_seg, kv_seg), seed = _flash_mode("dropout", 300, 2)
+    kw["scale"] = 0.125
+    o1, l1 = flash.flash_fwd(q, k, v, q_seg, kv_seg, seed, **kw)
+    o2, l2 = flash.flash_fwd(q, k, v, q_seg, kv_seg, seed, **kw)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    args = (q, k, v, o1, l1, do, q_seg, kv_seg, seed)
+    assert torch.equal(flash.flash_dq(*args, **kw),
+                       flash.flash_dq(*args, **kw))
+    (dk1, dv1), (dk2, dv2) = (flash.flash_dkv(*args, **kw),
+                              flash.flash_dkv(*args, **kw))
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+def test_flash_rejects_what_it_cannot_take():
+    _need_card()
+    case = flash_case(1, 16, 16, 2, 32, seed=0)
+    q, k, v, _ = (torch.from_numpy(case[x]).cuda() for x in FLASH_ARGS)
+    kw = dict(scale=0.1)
+    with pytest.raises(TypeError, match="not supported"):
+        flash.flash_fwd(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash.flash_fwd(q, k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                        v, **kw)
+    odd = flash_case(1, 16, 16, 2, 12, seed=0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash.flash_fwd(*(torch.from_numpy(odd[x]).cuda() for x in "qkv"),
+                        **kw)
+
+
+def _tiny_lm(device, num_kv_heads=None):
+    dims = dict(model_dim=64, num_heads=2, num_layers=2, ffn_dim=128)
+    model = CausalLM(97, dropout=0.0, max_len=64, device=device,
+                     num_kv_heads=num_kv_heads, **dims)
+    load_jax_params(model, causal_lm_tree(0, 97, num_kv_heads=num_kv_heads,
+                                          **dims))
+    return model
+
+
+def _lm_loss(module, batch, generator, training):
+    inp, tgt = batch
+    hid = module(inp, return_hidden=True, generator=generator)
+    w, bias = module.head_weights()
+    return linear_cross_entropy(hid, w, tgt, bias, chunk=256).mean(), {}
+
+
+@pytest.mark.parametrize("kv_heads", [None, 1])
+def test_train_step_on_card_matches_cpu(kv_heads):
+    """One f32 Trainer step on the card (flash kernels, one launch of
+    each per layer) against the same step on the CPU (plain attention):
+    loss within 1e-4, gradients within 1e-4 of each tensor's scale."""
+    _need_card()
+    batch = lm_stream(np.random.default_rng(0), 2, 48, 97)
+    steps = {}
+    for dev in ("cpu", "cuda"):
+        model = _tiny_lm(dev, num_kv_heads=kv_heads)
+        tr = Trainer(model, Adam(model.parameters(), 1e-3), _lm_loss)
+        before = (flash.flash_fwd.launches, flash.flash_dq.launches,
+                  flash.flash_dkv.launches)
+        out = tr.train_step(tuple(torch.from_numpy(x).to(dev)
+                                  for x in batch))
+        after = (flash.flash_fwd.launches, flash.flash_dq.launches,
+                 flash.flash_dkv.launches)
+        want = 2 if dev == "cuda" else 0
+        assert tuple(a - b for a, b in zip(after, before)) == (want,) * 3
+        steps[dev] = (float(out["loss"]),
+                      {n: p.grad.detach().cpu()
+                       for n, p in model.named_parameters()})
+    np.testing.assert_allclose(steps["cuda"][0], steps["cpu"][0],
+                               rtol=1e-4, atol=1e-4)
+    for name, g in steps["cpu"][1].items():
+        scale = float(g.abs().max())
+        torch.testing.assert_close(steps["cuda"][1][name], g, rtol=1e-4,
+                                   atol=1e-4 * scale + 1e-7)
