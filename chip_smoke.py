@@ -14,8 +14,10 @@ user calls:
 
 - `train`: a `Trainer` taking Adam steps on a bf16 `CausalLM` under the
   fused cross-entropy, B 4 x T 2048 — the flash forward, dq and dk/dv
-  kernels; `train_vs_plain` holds one f32 step through the kernels
-  against the same step through their plain versions;
+  kernels (bf16 forward and dk/dv on the tensor cores); `train_profile`
+  traces one more step for the card's busy time by kernel group;
+  `train_vs_plain` holds one f32 step through the kernels against the
+  same step through their plain versions;
 
 - `engine`: a `ServeEngine` (bf16) serving two waves that share a
   prefix — the fp ragged kernel;
@@ -47,7 +49,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,9 +84,13 @@ SEED = 1234
 EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
 
 FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
-SDPA_FWD = "F.scaled_dot_product_attention(is_causal=True), forward"
+# the bf16 forward and dk/dv kernels (entry points in FLASH_SRC)
+FLASH_TC_SRC = "paddle_tpu_torch/kernels/csrc/flash_tc.cuh"
+SDPA_FWD = ("F.scaled_dot_product_attention(is_causal=True), forward, "
+            "device time")
 SDPA_BWD = ("F.scaled_dot_product_attention(is_causal=True), backward: "
-            "dq, dk and dv in one call, beside the sum of kernels 5 and 6")
+            "dq, dk and dv in one call, device time, beside the sum of "
+            "kernels 5 and 6")
 
 KERNEL_ROWS = {
     # name: (source, the TPU kernel it replaces, library_ms note: why
@@ -104,9 +110,11 @@ KERNEL_ROWS = {
         "paddle_tpu/kernels/paged_attention.py:173",
         "no single PyTorch call gathers K/V through block tables; "
         "scaled_dot_product_attention needs the K/V gathered dense first"),
-    "flash_fwd": (FLASH_SRC, "paddle_tpu/kernels/flash.py:202", SDPA_FWD),
+    "flash_fwd": (FLASH_TC_SRC, "paddle_tpu/kernels/flash.py:202",
+                  SDPA_FWD),
     "flash_dq": (FLASH_SRC, "paddle_tpu/kernels/flash.py:363", SDPA_BWD),
-    "flash_dkv": (FLASH_SRC, "paddle_tpu/kernels/flash.py:419", SDPA_BWD),
+    "flash_dkv": (FLASH_TC_SRC, "paddle_tpu/kernels/flash.py:419",
+                  SDPA_BWD),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
@@ -266,13 +274,90 @@ def phase_device(cuda: bool) -> dict:
     return {"kind": kind, "count": torch.cuda.device_count(), "smi": smi}
 
 
-def phase_build(cfg: dict, cuda: bool) -> None:
+# flash kernel instantiations that must run on the tensor cores (bf16
+# kernels 4 and 6), by the name of their template in the source
+TENSOR_CORE_KERNELS = {"flash_fwd": "fwd_tc_kernel",
+                       "flash_dkv": "dkv_tc_kernel"}
+
+
+def ptxas_entries(report: str) -> Dict[str, dict]:
+    """`nvcc -Xptxas -v` output -> per kernel entry (demangled where
+    c++filt exists): registers and spill bytes."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+        elif name and "spill stores" in line:
+            parts = line.split(",")
+            out[name]["spill_store_bytes"] = int(parts[1].split()[0])
+            out[name]["spill_load_bytes"] = int(parts[2].split()[0])
+    return _demangle(out)
+
+
+def _demangle(by_name: Dict[str, dict]) -> Dict[str, dict]:
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt is None or not by_name:
+        return by_name
+    names = list(by_name)
+    res = subprocess.run([filt], input="\n".join(names), text=True,
+                         capture_output=True, timeout=60)
+    pretty = res.stdout.splitlines()
+    if len(pretty) != len(names):
+        return by_name
+    return {_strip_params(p): by_name[n] for n, p in zip(names, pretty)}
+
+
+def _strip_params(name: str) -> str:
+    """A demangled function name without its parameter list (template
+    arguments such as `(int)64` keep their parentheses)."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def sass_tensor_ops(library: Path) -> Optional[Dict[str, dict]]:
+    """Per kernel of a built library, its count of HGMMA (wgmma) and
+    HMMA (mma.sync) instructions in the SASS, from `cuobjdump -sass`;
+    None when the toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump")
+    if exe is None:
+        cand = Path(build.nvcc_path()).parent / "cuobjdump"
+        exe = str(cand) if cand.is_file() else None
+    if exe is None:
+        return None
+    sass = subprocess.run([exe, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    out[name][op] += 1
+    return _demangle(out)
+
+
+def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
     """Build every kernel from this checkout's sources (one nvcc per
-    source, in parallel); report ptxas's registers/spills and the
-    dynamic shared memory a CTA takes at the serving paths' shapes."""
+    source, in parallel); report ptxas's registers/spills, the dynamic
+    shared memory a CTA takes at the paths' shapes, and for each flash
+    kernel instantiation its registers, spills and tensor-core
+    instructions in the SASS. Fails if a bf16 kernel 4 or 6
+    instantiation has no HGMMA. Returns, per flash kernel, whether its
+    bf16 path runs on the tensor cores."""
     if not cuda:
         emit({"phase": "build", "skipped": "no nvcc in a CPU rehearsal"})
-        return
+        return {}
     t0 = time.perf_counter()
     infos = build.build_all()
     seconds = time.perf_counter() - t0
@@ -288,8 +373,31 @@ def phase_build(cfg: dict, cuda: bool) -> None:
               paged.shared_memory_bytes(1, h // cfg["gqa_kv_heads"], d, bs,
                                         "paged_attention"),
           "flash_dynamic_smem_bytes": {
-              which: flash.shared_memory_bytes(which, d)
-              for which in ("fwd", "dq", "dkv")}})
+              str(dt).replace("torch.", ""): {
+                  which: flash.shared_memory_bytes(which, d, dt)
+                  for which in ("fwd", "dq", "dkv")}
+              for dt in (torch.float32, torch.bfloat16)}})
+    lib = infos["flash_attention"]
+    regs = ptxas_entries(lib.ptxas)
+    sass = sass_tensor_ops(lib.path)
+    kernels = {}
+    for name, r in regs.items():
+        row = dict(r)
+        if sass is not None:
+            row.update(sass.get(name, {}))
+        kernels[name] = row
+    tensor_cores = {}
+    for kernel, template in TENSOR_CORE_KERNELS.items():
+        inst = {n: k for n, k in kernels.items() if template in n}
+        check(bool(inst), f"no {template} instantiation in the build")
+        if sass is not None:
+            check(all(k.get("HGMMA", 0) > 0 for k in inst.values()),
+                  f"{template}: an instantiation without HGMMA: {inst}")
+        tensor_cores[kernel] = sass is not None
+    emit({"phase": "build", "flash_kernels": kernels,
+          "cuobjdump": "found" if sass is not None else
+          "missing: no SASS instruction counts on this machine"})
+    return tensor_cores
 
 
 def _plain(args):
@@ -381,15 +489,22 @@ def phase_mixed_vs_promote(cfg: dict, device: torch.device) -> None:
 
 
 def _timed(name: str, launch, plain, cost, dtype, cfg: dict, cuda: bool,
-           card: dict, library_ms=None, iters=None, **info) -> dict:
-    """Time a kernel (and its plain version) at its path's shape; with
-    `library_ms`, the time of the PyTorch call that computes the same
-    function, measured by the caller."""
-    ms = time_ms(launch, iters or cfg["time_iters"], 10, cuda)
+           card: dict, library_ms=None, iters=None, device_ms=None,
+           **info) -> dict:
+    """Time a kernel (and its plain version) at its path's shape with
+    CUDA events around back-to-back launches; with `library_ms`, the
+    time of the PyTorch call that computes the same function, measured
+    by the caller. With `device_ms` (the caller's device-clock time),
+    that is the kernel's `ms` and the events' figure `events_ms`: a
+    kernel as short as one launch's host work makes the events time the
+    host."""
+    events_ms = time_ms(launch, iters or cfg["time_iters"], 10, cuda)
+    ms = events_ms if device_ms is None else device_ms
     plain_ms = time_ms(plain, cfg["plain_iters"], 2, cuda)
     nbytes, flops = cost
     bytes_ms, ops_ms, bound_ms = bound(nbytes, flops, dtype)
-    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    out = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
            "library_ms": library_ms, "bytes": nbytes, "flops": flops}
@@ -959,12 +1074,97 @@ def flash_cost(q, k, vis_pairs: int, which: str) -> Tuple[float, float]:
     return float(nbytes), float(per * d * vis_pairs)
 
 
+def sdpa_backend(names: Sequence[str]) -> str:
+    """Which backend of scaled_dot_product_attention ran, from the names
+    of the kernels in its trace."""
+    low = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in low:
+            return backend
+    return "unknown"
+
+
+def device_events(prof) -> Dict[str, float]:
+    """Device time, us, by name of what ran on the card (kernels,
+    memsets, copies) in a `torch.profiler` trace. Only the device's own
+    activities count: a CPU op's device time, or a user annotation's
+    device span (`Optimizer.step#Adam.step`), is its kernels' again."""
+    events = prof.events()
+    cpu_names = {e.name for e in events
+                 if e.device_type != torch.autograd.DeviceType.CUDA}
+    out = {}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name in cpu_names
+                or e.name.startswith("Activity Buffer")):
+            continue
+        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return out
+
+
+def device_time(fn, iters: int, cuda: bool) -> dict:
+    """Device time of one call of `fn`, ms: the summed device time of the
+    kernels in a `torch.profiler` trace of `iters` calls (or, if the
+    trace holds no device time, CUDA-graph replays under CUDA events),
+    with the host's enqueue time per call beside it and the names of
+    the kernels that ran."""
+    if not cuda:
+        return {"device_ms": None, "host_enqueue_ms": None,
+                "clock": "not measured (no card)", "kernels": []}
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    per_kernel = device_events(prof)
+    total_us = sum(per_kernel.values())
+    out = {"host_enqueue_ms": host * 1e3 / iters,
+           "kernels": sorted(per_kernel)}
+    if total_us > 0:
+        return {"device_ms": total_us / 1e3 / iters,
+                "clock": "torch.profiler device time", **out}
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        graph.replay()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return {"device_ms": start.elapsed_time(end) / iters,
+            "clock": "CUDA-graph replays under CUDA events (the trace "
+                     "held no device time)",
+            **out, "host_enqueue_ms_replay": host * 1e3 / iters}
+
+
 def phase_flash_time(cfg: dict, device: torch.device, card: dict) -> dict:
     """Kernels 4, 5 and 6 at the train phase's attention shape (B 4,
-    H 8, T 2048, D 64, bf16, causal): each kernel, its plain version and
-    its bound; the library yardstick is F.scaled_dot_product_attention
+    H 8, T 2048, D 64, bf16, causal): each kernel's time on the device's
+    clock (`device_time` over cfg["flash_iters"] calls; CUDA events over
+    as many back-to-back launches beside it), its plain version and its
+    bound. The library yardstick is F.scaled_dot_product_attention
     (forward for kernel 4; its backward, which gives dq, dk and dv in one
-    call, beside kernels 5 + 6)."""
+    call, beside kernels 5 + 6) on the same clock, with the host's
+    enqueue time beside each and the SDPA backend named from its
+    kernels."""
     cuda = device.type == "cuda"
     b, t, h, d = cfg["flash_time"]
     dtype = torch.bfloat16 if cuda else torch.float32
@@ -975,38 +1175,48 @@ def phase_flash_time(cfg: dict, device: torch.device, card: dict) -> dict:
                 .sum()) * b * h
     info = dict(batch=b, t=t, heads=h, d=d, causal=True,
                 visible_pairs=pairs)
-    sdpa_fwd = sdpa_bwd = None
-    if cuda:
-        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
-                           for x in (q, k, v, do))
-        sdpa_fwd = time_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(qh, kh, vh,
-                                                         is_causal=True),
-                           cfg["time_iters"], 10, cuda)
-        leaves = [x.clone().requires_grad_(True) for x in (qh, kh, vh)]
-        oh = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, is_causal=True)
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-            oh, leaves, doh, retain_graph=True), cfg["time_iters"], 10, cuda)
     iters = cfg["flash_iters"]
-    out = {
-        "flash_fwd": _timed(
-            "flash_fwd", lambda: flash.flash_fwd(q, k, v, **kw),
-            lambda: flash.flash_fwd_reference(q, k, v, **kw),
-            flash_cost(q, k, pairs, "fwd"), dtype, cfg, cuda, card,
-            library_ms=sdpa_fwd, iters=iters, **info),
-        "flash_dq": _timed(
-            "flash_dq", lambda: flash.flash_dq(q, k, v, o, lse, do, **kw),
-            lambda: flash.flash_dq_reference(q, k, v, o, lse, do, **kw),
-            flash_cost(q, k, pairs, "dq"), dtype, cfg, cuda, card,
-            library_ms=sdpa_bwd, iters=iters, **info),
-        "flash_dkv": _timed(
-            "flash_dkv", lambda: flash.flash_dkv(q, k, v, o, lse, do, **kw),
-            lambda: flash.flash_dkv_reference(q, k, v, o, lse, do, **kw),
-            flash_cost(q, k, pairs, "dkv"), dtype, cfg, cuda, card,
-            library_ms=sdpa_bwd, iters=iters, **info)}
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    leaves = [x.clone().requires_grad_(True) for x in (qh, kh, vh)]
+    oh = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                          is_causal=True)
+    launches = {
+        "flash_fwd": lambda: flash.flash_fwd(q, k, v, **kw),
+        "flash_dq": lambda: flash.flash_dq(q, k, v, o, lse, do, **kw),
+        "flash_dkv": lambda: flash.flash_dkv(q, k, v, o, lse, do, **kw),
+        "sdpa_fwd": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True),
+        "sdpa_bwd": lambda: torch.autograd.grad(oh, leaves, doh,
+                                                retain_graph=True)}
+    dev = {n: device_time(fn, iters, cuda) for n, fn in launches.items()}
+    for n in ("sdpa_fwd", "sdpa_bwd"):
+        dev[n]["backend"] = sdpa_backend(dev[n]["kernels"])
+    emit({"phase": "flash_device_time", **info, "iters": iters,
+          "device": card["kind"], "nvidia_smi": card["smi"], **dev})
+    sdpa_fwd, sdpa_bwd = dev["sdpa_fwd"]["device_ms"], \
+        dev["sdpa_bwd"]["device_ms"]
+    plain = {
+        "flash_fwd": lambda: flash.flash_fwd_reference(q, k, v, **kw),
+        "flash_dq": lambda: flash.flash_dq_reference(q, k, v, o, lse, do,
+                                                     **kw),
+        "flash_dkv": lambda: flash.flash_dkv_reference(q, k, v, o, lse, do,
+                                                       **kw)}
+    which = {"flash_fwd": "fwd", "flash_dq": "dq", "flash_dkv": "dkv"}
+    out = {}
+    for name in FLASH_KERNELS:
+        lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
+        out[name] = _timed(
+            name, launches[name], plain[name],
+            flash_cost(q, k, pairs, which[name]), dtype, cfg, cuda, card,
+            library_ms=lib, iters=iters, **info,
+            device_ms=dev[name]["device_ms"],
+            clock=dev[name]["clock"],
+            host_enqueue_ms=dev[name]["host_enqueue_ms"],
+            library=dev["sdpa_fwd" if name == "flash_fwd" else "sdpa_bwd"])
     emit({"phase": "kernel_time", "kernel": "flash_dq+flash_dkv",
           "ms": out["flash_dq"]["ms"] + out["flash_dkv"]["ms"],
+          "device_ms": (None if not cuda else dev["flash_dq"]["device_ms"]
+                        + dev["flash_dkv"]["device_ms"]),
           "bound_ms": out["flash_dq"]["bound_ms"]
           + out["flash_dkv"]["bound_ms"],
           "library_ms": sdpa_bwd, "note": SDPA_BWD, **info,
@@ -1057,9 +1267,11 @@ def phase_train(cfg: dict, tree: dict, device: torch.device,
     warm, fixed = _lm_batches(cfg, 2, batch, device, SEED + 9)
     trainer.train_step(warm)
     _reset_launches()                               # the path's counts
+    start_bytes = None
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1078,10 +1290,48 @@ def phase_train(cfg: dict, tree: dict, device: torch.device,
            "step_ms": step_ms, "step_ms_median": med,
            "tokens_per_s": tokens / med * 1e3,
            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           # held before the first counted step (weights, Adam slots, and
+           # whatever the earlier phases left allocated)
+           "allocated_at_start_bytes": start_bytes,
            "kernel_launches": launches, "layers": layers,
            "device": card["kind"], "nvidia_smi": card["smi"]}
     emit({"phase": "train", **out})
+    if cuda:
+        emit({"phase": "train_profile", **step_profile(trainer, fixed, med),
+              "device": card["kind"], "nvidia_smi": card["smi"]})
     return out
+
+
+def step_profile(trainer, batch, step_ms: float) -> dict:
+    """One more training step under `torch.profiler` (after the counted
+    steps; its launches are not counted): the card's busy time in the
+    step by kernel group, and the idle share against the median
+    unprofiled step `step_ms`."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        float(trainer.train_step(batch)["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    groups = {"flash_fwd": "fwd_tc_kernel", "flash_dq": "dq_kernel",
+              "flash_dkv": "dkv_tc_kernel"}
+    by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
+    for name, us in events.items():
+        low = name.lower()
+        group = next((g for g, key in groups.items() if key in name), None)
+        if group is None:
+            group = "gemm" if any(k in low for k in (
+                "gemm", "xmma", "cutlass", "nvjet", "cublas")) else "other"
+        by_group[group] += us / 1e3
+    busy = sum(by_group.values())
+    top = sorted(events.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_busy_ms": busy, "step_ms_median": step_ms,
+            "idle_share": 1.0 - busy / step_ms,
+            "profiled_step_wall_ms": wall, "busy_ms_by_group": by_group,
+            "top_kernels_ms": {n[:120]: us / 1e3 for n, us in top},
+            "clock": "torch.profiler device time"}
 
 
 @contextlib.contextmanager
@@ -1246,7 +1496,7 @@ def full_config() -> dict:
         split_prompts=(40, 23), split_steps=4,
         # flash checks and times (B, T, H, D): the train phase's attention
         flash_check=(4, 2048, 8, 64), flash_time=(4, 2048, 8, 64),
-        flash_iters=20,
+        flash_iters=400,
         # train: B 4 x T 2048 bf16, Adam at the lr of
         # examples/train_causal_lm.py; train_vs_plain: one f32 step
         train_steps=10, train_batch=4, train_seq=2048, train_lr=3e-3,
@@ -1294,7 +1544,7 @@ def main(argv=None) -> int:
     torch.manual_seed(SEED)
 
     card = phase_device(cuda)
-    phase_build(cfg, cuda)
+    tensor_cores = phase_build(cfg, cuda)
     errs = phase_kernel_vs_plain(cfg, device)
     phase_mixed_vs_promote(cfg, device)
     errs.update(phase_flash_vs_plain(cfg, device))
@@ -1322,7 +1572,8 @@ def main(argv=None) -> int:
             "launched": paths[name]["kernel_launches"][name],
             "checked": True, "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "tensor_cores": tensor_cores.get(name, False)})
     emit({"kernels": rows})
     if cuda:
         emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

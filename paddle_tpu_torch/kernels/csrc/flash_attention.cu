@@ -18,30 +18,64 @@
 //
 // What bounds them on the H100: operations. Per visible (q, k) pair and
 // head the forward does 4*D FLOPs (q.k, p.v), dq 6*D and dk/dv 8*D, over
-// operands read about once: at the training shape (T 2048, D 64) that is
-// hundreds of FLOPs per byte, above the card's ridge.
+// operands read about once: at the training shape (bf16, T 2048, D 64,
+// causal) the forward does 17.2 GFLOP over 10 MB, ~500 FLOPs per byte,
+// above the card's ridge of ~295 for bf16. So the products must run on
+// the tensor cores, and what is not a product (the exponential, the
+// mask, the row reductions) must stay small beside them.
 //
-// Design (simple and right first; tensor cores are later work):
-// - Kernel 4 and kernel 5: one CTA per (q tile, b * H + h); kernel 6: one
-//   CTA per (k tile, b * H + h). The TPU's sequential grid axis becomes a
-//   loop inside the CTA over the k tiles (4, 5) or q tiles (6) that can
-//   hold a visible pair (causal and kv_len bound the loop; a tile whose
-//   pairs are all masked, e.g. across segments, is skipped after one
-//   __syncthreads_or). No atomics and no cross-CTA sum: dq and dk/dv stay
-//   two kernels, so a launch gives the same bytes every time.
-// - Tiles go to shared memory as f32 (16-byte loads); scores, softmax and
-//   every accumulator are f32 FMAs on the CUDA cores. Tiles are 64 x 64
-//   for D <= 128 and 32 x 32 for D <= 256 (shared memory).
-// - Rounding points are the Pallas kernels': p rounded to the operand
-//   dtype before P.V (:255) while l sums the unrounded p (:249); ds and
-//   the dropped p (g) rounded before their products (:411, :463, :477);
-//   dq, dk, dv accumulate in f32 and are rounded once. expf/logf, never
-//   the fast intrinsics, and no fast-math flags.
-// - Dropout: l sums the UNdropped p; only the accumulator sees
-//   keep * p * f32(1 / (1 - r)); kernels 5 and 6 drop dp (and kernel 6
-//   g) with the same keep bit (:247-253, :402-405, :457-463, :470-471).
+// Two designs, chosen by dtype in `launch` (a dispatch by type; a bf16
+// launch that fails returns its error, nothing falls back):
+// - bf16 forward and dk/dv (flash_tc.cuh, hopper.cuh): tensor cores.
+//   `wgmma.mma_async` m64n64k16 bf16 -> f32 takes every product; TMA
+//   brings K/V (forward) or Q/dO (dk/dv) tiles into a ring of two
+//   stages, 128-byte swizzled, bf16 (head dims padded with zeros to 64,
+//   128 or 256 in shared memory), so the next tile's copy overlaps this
+//   tile's products; one barrier per tile frees a stage.
+//   Forward: one CTA per (b * H + h, 128 query rows), two warpgroups of
+//   64 rows; S = Q K^T from shared memory, the online softmax on the
+//   accumulator fragments (row max and sum over the four threads of a
+//   row), P rounded to bf16 in registers as the A operand of O += P V,
+//   V read MN-major. dk/dv: one CTA per (b * H + h, k tile); the products
+//   are transposed, s^T = K Q^T and dp^T = V dO^T, so g^T and ds^T leave
+//   the accumulators as the register A operand of dV += g^T dO and
+//   dK += ds^T Q; lse and delta of each q tile are staged beside it.
+//   Causal q tiles of the forward run longest first (the tile index is
+//   reversed from blockIdx); dk/dv's k tile 0, its longest, already
+//   runs first. The exponential is exp2 of log2(e)-prescaled scores by
+//   ex2.approx: its ~2 ulp f32 error is far inside the bf16 bar, and
+//   one full-precision expf per visible pair would cost tens of us,
+//   a large share of the whole forward at tensor-core rate. lse stays
+//   the natural log: lse = m * ln 2 + log(l).
+// - f32 (all three) and bf16 dq: SIMT, one CTA of 256 threads per tile
+//   (64 x 64 tiles for D <= 128, 32 x 32 above), tiles staged as f32 in
+//   shared memory, every product an f32 FMA on the CUDA cores. f32 stays
+//   there because the tensor cores would compute it in TF32 (about 3
+//   decimal digits), and the f32 path is held to float32: 2e-6 for o and
+//   lse, 2e-5 for gradients, and the train_vs_plain step. bf16 dq is
+//   kernel 5, whose redesign is later work.
+// Both designs loop inside the CTA over the tiles that can hold a
+// visible pair (causal and kv_len bound the loop; a tile whose pairs are
+// all masked, e.g. across segments, is skipped after one
+// __syncthreads_or). No atomics and no split across CTAs: dq and dk/dv
+// stay two kernels, so a launch gives the same bytes every time.
+//
+// Rounding points are the Pallas kernels': p rounded to the operand
+// dtype before P.V (:255) while l sums the unrounded p (:249); ds and
+// the dropped p (g) rounded before their products (:411, :463, :477);
+// dq, dk, dv accumulate in f32 and are rounded once; masking by select
+// to -1e30. Dropout: l sums the UNdropped p; only the accumulator sees
+// keep * p * f32(1 / (1 - r)); kernels 5 and 6 drop dp (and kernel 6
+// g) with the same keep bit (:247-253, :402-405, :457-463, :470-471),
+// evaluated per element from its global (q, k). delta = sum(dO * o) has
+// one summation order for kernels 5 and 6 (`quad_delta`). The SIMT
+// kernels use expf/logf, never the fast intrinsics, and no fast-math
+// flags.
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -206,8 +240,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     const int r = q0 + ty + 16 * i;
     lse[i] = r < a.t_q ? a.lse[(size_t)bh * a.t_q + r] : 0.f;
   }
-  row_delta<T, RQ, NJ>(static_cast<const T*>(a.o), sdo, ld, b, h, q0, a.t_q,
-                       H, D, delta);
+  row_delta<T, RQ>(a, b, h, q0, delta);
 
   float dq[RQ][NJ];
 #pragma unroll
@@ -338,8 +371,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
       const int r = q0 + ty + 16 * i;
       lse[i] = r < a.t_q ? a.lse[(size_t)bh * a.t_q + r] : 0.f;
     }
-    row_delta<T, RQ, NJ>(static_cast<const T*>(a.o), sdo, ld, b, h, q0,
-                         a.t_q, H, D, delta);
+    row_delta<T, RQ>(a, b, h, q0, delta);
     float s[RQ][RK], dp[RQ][RK];
     dot_tile<RQ, RK>(sq, sk, ld, D, s);
     dot_tile<RQ, RK>(sdo, sv, ld, D, dp);
@@ -438,14 +470,17 @@ int launch_typed(int which, const Args& a, int batch, cudaStream_t stream) {
   constexpr int BQ = tile_for(NJ), BK = tile_for(NJ);
   const size_t smem = smem_bytes(which, a.head_dim);
   const int bh = batch * a.heads;
-  if (which == kFwd)
-    return launch_kernel(fwd_kernel<T, BQ, BK, NJ>,
-                         dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
-  if (which == kDq)
-    return launch_kernel(dq_kernel<T, BQ, BK, NJ>,
-                         dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
-  return launch_kernel(dkv_kernel<T, BQ, BK, NJ>,
-                       dim3((a.t_k + BK - 1) / BK, bh), smem, a, stream);
+  // bf16 comes here for dq only: its forward and dk/dv are tc::launch's
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == kFwd)
+      return launch_kernel(fwd_kernel<T, BQ, BK, NJ>,
+                           dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
+    if (which == kDkv)
+      return launch_kernel(dkv_kernel<T, BQ, BK, NJ>,
+                           dim3((a.t_k + BK - 1) / BK, bh), smem, a, stream);
+  }
+  return launch_kernel(dq_kernel<T, BQ, BK, NJ>,
+                       dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
 }
 
 template <typename T>
@@ -470,6 +505,8 @@ int launch(int which, Args a, int batch, int kv_len, int dtype,
   a.limit = (kv_len < 0 || kv_len > a.t_k) ? a.t_k : kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dtype<float>(which, a, batch, s);
+  // bf16 forward and dk/dv on the tensor cores; bf16 dq on SIMT
+  if (dtype == 1 && which != kDq) return tc::launch(which == kDkv, a, batch, s);
   if (dtype == 1) return launch_dtype<__nv_bfloat16>(which, a, batch, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -505,6 +542,14 @@ extern "C" {
 // 2 = dk/dv.
 size_t ptt_flash_smem_bytes(int which, int head_dim) {
   return smem_bytes(which, head_dim);
+}
+
+// The same for the bf16 tensor-core kernels: which 0 = forward, 2 = dk/dv
+// (bf16 dq is the SIMT kernel of ptt_flash_smem_bytes).
+size_t ptt_flash_tc_smem_bytes(int which, int head_dim) {
+  return which == kFwd ? tc::fwd_smem(head_dim)
+         : which == kDkv ? tc::dkv_smem(head_dim)
+                         : smem_bytes(which, head_dim);
 }
 
 // All three: dtype 0 = float32, 1 = bfloat16; kv_len < 0 for none;

@@ -21,7 +21,7 @@
 // - `Dropout`: the murmur3-finalizer hash of (seed, b * H + h, q, k)
 //   (flash.py _mix32/_dropout_keep :134-153), bit for bit, with the
 //   threshold uint32(rate * 2^32) computed on the host.
-// - `row_delta`: sum over d of dO * O in f32 for each query row, one
+// - `quad_delta`: sum over d of dO * O in f32 for each query row, one
 //   summation order, so kernels 5 and 6 use the same number.
 // Scores are f32 and masked by SELECT to -1e30 (flash.py:59).
 
@@ -187,28 +187,49 @@ __device__ __forceinline__ bool tile_visible(const Mask& mask, int q0, int k0,
   return __syncthreads_or(any) != 0;
 }
 
-// delta[i] = sum_d dO[r][d] * O[r][d] in f32 for the rows r = ty + 16 i of
-// the tile at q0 (dO staged in sdo, O read from device memory); 0 past Tq.
-template <typename T, int RQ, int NJ>
-__device__ __forceinline__ void row_delta(const T* o, const float* sdo,
-                                          int ld, int b, int h, int q0,
-                                          int t_q, int H, int D,
+// delta = sum over d of dO[d] * O[d] in f32 for one query row, by the
+// four consecutive lanes of a quad: lane j = lane & 3 sums the 8-column
+// chunks j, j + 4, j + 8, ... in column order with fmaf, then the quad
+// adds (s0 + s1) + (s2 + s3), so every lane ends with the same bits. The
+// one summation order of delta: kernels 5 and 6 (SIMT and tensor-core)
+// all take it from here. Call with whole warps; `valid` false gives 0
+// and reads nothing.
+template <typename T>
+__device__ __forceinline__ float quad_delta(const T* o_row, const T* do_row,
+                                            int D, bool valid) {
+  constexpr int kVec = Traits<T>::kVec;
+  float acc = 0.f;
+  if (valid) {
+    for (int c = (threadIdx.x & 3) * 8; c < D; c += 32) {
+#pragma unroll
+      for (int v = 0; v < 8; v += kVec) {
+        float x[kVec], y[kVec];
+        Traits<T>::load(do_row + c + v, x);
+        Traits<T>::load(o_row + c + v, y);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc = fmaf(x[e], y[e], acc);
+      }
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
+
+// delta of the rows q0 + ty + 16 i (the SIMT kernels' rows); 0 past Tq.
+template <typename T, int RQ>
+__device__ __forceinline__ void row_delta(const Args& a, int b, int h, int q0,
                                           float (&delta)[RQ]) {
-  const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int r = ty + 16 * i;
-    float acc = 0.f;
-    if (q0 + r < t_q) {
-      const T* orow = o + row_offset(b, q0 + r, t_q, h, H, D);
-#pragma unroll
-      for (int jd = 0; jd < NJ; ++jd) {
-        const int d = tx + 16 * jd;
-        if (d < D) acc = fmaf(sdo[r * ld + d], Traits<T>::get(orow[d]), acc);
-      }
-    }
-    delta[i] = group_sum(acc);
+    const int r = q0 + ty + 16 * i;
+    const bool valid = r < a.t_q;
+    const size_t off =
+        row_offset(b, valid ? r : 0, a.t_q, h, a.heads, a.head_dim);
+    delta[i] = quad_delta(static_cast<const T*>(a.o) + off,
+                          static_cast<const T*>(a.dout) + off, a.head_dim,
+                          valid);
   }
 }
 

@@ -303,7 +303,8 @@ def _flash_mode(mode, t, b):
     if mode in ("segments", "dropout"):
         rows = [packed_segment_ids((t // 3, t // 2), t),
                 packed_segment_ids((t - t // 4,), t)]
-        ids = torch.from_numpy(np.stack(rows[:b])).cuda()
+        ids = torch.from_numpy(np.stack([rows[i % 2] for i in range(b)]))
+        ids = ids.cuda()
         segs = (ids, ids)
     if mode == "dropout":
         kw["dropout_rate"] = 0.1
@@ -314,16 +315,18 @@ def _flash_mode(mode, t, b):
 FLASH_MODES = ("full", "causal", "kv_len", "segments", "dropout")
 
 
-def _check_flash_kernels(t, d, dtype, mode, b=2, h=2):
+def _check_flash_kernels(t, d, dtype, mode, b=2, h=2, t_k=None):
     """Each of the three kernels against its plain version on the same
     inputs: f32 at 1e-5 (o, lse) and 1e-4 (dq, dk, dv); bf16 against the
     plain version run in f32 on the same bf16 values at 2e-2 (absolute
-    and relative: the kernel rounds p, ds and g to bf16 on the way)."""
+    and relative: the kernel rounds p, ds and g to bf16 on the way).
+    t_k (default t): the key length; segment modes need t_k == t."""
     dt = getattr(torch, dtype)
-    case = flash_case(b, t, t, h, d, seed=t + d)
+    t_k = t if t_k is None else t_k
+    case = flash_case(b, t, t_k, h, d, seed=t + d)
     q, k, v, do = (torch.from_numpy(case[x]).cuda().to(dt)
                    for x in FLASH_ARGS)
-    kw, (q_seg, kv_seg), seed = _flash_mode(mode, t, b)
+    kw, (q_seg, kv_seg), seed = _flash_mode(mode, t_k, b)
     kw["scale"] = d ** -0.5
     otol = dict(atol=1e-5, rtol=1e-5) if dt == torch.float32 else dict(
         atol=2e-2, rtol=2e-2)
@@ -367,6 +370,34 @@ def test_flash_kernels_match_plain_causal(t, d, dtype):
 def test_flash_kernels_match_plain_masks(mode, t, dtype):
     _need_card()
     _check_flash_kernels(t, 64, dtype, mode)
+
+
+# (b, h, t_q, t_k, d, mode): shapes the bf16 tensor-core kernels (128
+# query rows and 64 keys per CTA in the forward, 128 or 64 keys and 64
+# query rows a stage in dk/dv, head dims padded to 64, 128 or 256) tile
+# unevenly; f32 runs the same shapes through the SIMT kernels
+TC_SHAPES = {
+    "cross_causal_tq_gt_tk": (2, 2, 333, 200, 64, "causal"),
+    "cross_causal_tq_lt_tk": (2, 2, 200, 333, 64, "causal"),
+    "cross_kv_len": (2, 2, 300, 517, 64, "kv_len"),
+    "t127": (2, 2, 127, 127, 64, "causal"),
+    "t129": (2, 2, 129, 129, 64, "causal"),
+    "t2047": (1, 2, 2047, 2047, 64, "causal"),
+    "t2049": (1, 2, 2049, 2049, 64, "causal"),
+    "t4096": (1, 2, 4096, 4096, 64, "causal"),
+    "bh_over_132_sms": (9, 16, 256, 256, 64, "causal"),
+    "d40_padded": (2, 2, 300, 300, 40, "dropout"),
+    "d200_padded": (2, 2, 300, 300, 200, "segments"),
+    "train_shape_dropout": (4, 8, 2048, 2048, 64, "dropout"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+def test_flash_kernels_match_plain_uneven_shapes(shape, dtype):
+    _need_card()
+    b, h, t_q, t_k, d, mode = TC_SHAPES[shape]
+    _check_flash_kernels(t_q, d, dtype, mode, b=b, h=h, t_k=t_k)
 
 
 @pytest.mark.parametrize("d", [64, 256])
@@ -416,6 +447,39 @@ def test_flash_core_grads_match_autograd_of_plain_forward(mode):
     for got, want in zip(leaves, refs):
         torch.testing.assert_close(got.grad, want.grad, atol=1e-4,
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", FLASH_MODES)
+def test_flash_core_bf16_grads_match_autograd_of_plain_forward(mode):
+    """bf16 FlashCore (tensor-core kernels 4 and 6, SIMT kernel 5 on the
+    same inputs) against PyTorch autograd through the plain forward in
+    f32 on the same bf16 values: o, dq, dk and dv at 2e-2 absolute plus
+    2e-2 relative (the kernels round p, ds, g and their outputs to
+    bf16; autograd of the f32 forward rounds nothing)."""
+    _need_card()
+    t, d, b = 300, 64, 2
+    case = flash_case(b, t, t, 2, d, seed=7)
+    kw, (q_seg, kv_seg), seed = _flash_mode(mode, t, b)
+    do = torch.from_numpy(case["do"]).cuda().bfloat16()
+    leaves = [torch.from_numpy(case[x]).cuda().bfloat16().requires_grad_(True)
+              for x in "qkv"]
+    before = (flash.flash_fwd.launches, flash.flash_dq.launches,
+              flash.flash_dkv.launches)
+    o = flash.FlashCore.apply(*leaves, q_seg, kv_seg, seed, d ** -0.5,
+                              kw.get("causal", False), kw.get("kv_len"),
+                              kw.get("dropout_rate", 0.0))
+    o.backward(do)
+    assert (flash.flash_fwd.launches, flash.flash_dq.launches,
+            flash.flash_dkv.launches) == tuple(n + 1 for n in before)
+    refs = [x.detach().float().requires_grad_(True) for x in leaves]
+    o_ref, _ = flash.flash_fwd_reference(*refs, q_seg, kv_seg, seed,
+                                         scale=d ** -0.5, **kw)
+    o_ref.backward(do.float())
+    torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=2e-2)
+    for got, want in zip(leaves, refs):
+        assert got.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(got.grad.float(), want.grad, atol=2e-2,
+                                   rtol=2e-2)
 
 
 @pytest.mark.parametrize("d", [16, 40, 80])
