@@ -14,7 +14,7 @@ user calls:
 
 - `train`: a `Trainer` taking Adam steps on a bf16 `CausalLM` under the
   fused cross-entropy, B 4 x T 2048 — the flash forward, dq and dk/dv
-  kernels (bf16 forward and dk/dv on the tensor cores); `train_profile`
+  kernels (all three on the tensor cores in bf16); `train_profile`
   traces one more step for the card's busy time by kernel group;
   `train_vs_plain` holds one f32 step through the kernels against the
   same step through their plain versions;
@@ -84,7 +84,7 @@ SEED = 1234
 EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
 
 FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
-# the bf16 forward and dk/dv kernels (entry points in FLASH_SRC)
+# the bf16 forward, dq and dk/dv kernels (entry points in FLASH_SRC)
 FLASH_TC_SRC = "paddle_tpu_torch/kernels/csrc/flash_tc.cuh"
 SDPA_FWD = ("F.scaled_dot_product_attention(is_causal=True), forward, "
             "device time")
@@ -112,7 +112,8 @@ KERNEL_ROWS = {
         "scaled_dot_product_attention needs the K/V gathered dense first"),
     "flash_fwd": (FLASH_TC_SRC, "paddle_tpu/kernels/flash.py:202",
                   SDPA_FWD),
-    "flash_dq": (FLASH_SRC, "paddle_tpu/kernels/flash.py:363", SDPA_BWD),
+    "flash_dq": (FLASH_TC_SRC, "paddle_tpu/kernels/flash.py:363",
+                 SDPA_BWD),
     "flash_dkv": (FLASH_TC_SRC, "paddle_tpu/kernels/flash.py:419",
                   SDPA_BWD),
 }
@@ -275,8 +276,9 @@ def phase_device(cuda: bool) -> dict:
 
 
 # flash kernel instantiations that must run on the tensor cores (bf16
-# kernels 4 and 6), by the name of their template in the source
+# kernels 4, 5 and 6), by the name of their template in the source
 TENSOR_CORE_KERNELS = {"flash_fwd": "fwd_tc_kernel",
+                       "flash_dq": "dq_tc_kernel",
                        "flash_dkv": "dkv_tc_kernel"}
 
 
@@ -352,9 +354,10 @@ def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
     source, in parallel); report ptxas's registers/spills, the dynamic
     shared memory a CTA takes at the paths' shapes, and for each flash
     kernel instantiation its registers, spills and tensor-core
-    instructions in the SASS. Fails if a bf16 kernel 4 or 6
-    instantiation has no HGMMA. Returns, per flash kernel, whether its
-    bf16 path runs on the tensor cores."""
+    instructions in the SASS. Fails if a bf16 kernel 4, 5 or 6
+    instantiation has no HGMMA, or if a SIMT kernel is built for bf16.
+    Returns, per flash kernel, whether its bf16 path runs on the tensor
+    cores."""
     if not cuda:
         emit({"phase": "build", "skipped": "no nvcc in a CPU rehearsal"})
         return {}
@@ -394,6 +397,8 @@ def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
             check(all(k.get("HGMMA", 0) > 0 for k in inst.values()),
                   f"{template}: an instantiation without HGMMA: {inst}")
         tensor_cores[kernel] = sass is not None
+    simt_bf16 = [n for n in kernels if "bfloat16" in n]
+    check(not simt_bf16, f"SIMT flash kernels built for bf16: {simt_bf16}")
     emit({"phase": "build", "flash_kernels": kernels,
           "cuobjdump": "found" if sass is not None else
           "missing: no SASS instruction counts on this machine"})
@@ -1315,12 +1320,12 @@ def step_profile(trainer, batch, step_ms: float) -> dict:
         float(trainer.train_step(batch)["loss"])
         wall = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
-    groups = {"flash_fwd": "fwd_tc_kernel", "flash_dq": "dq_kernel",
-              "flash_dkv": "dkv_tc_kernel"}
-    by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
+    by_group = dict.fromkeys(list(TENSOR_CORE_KERNELS) + ["gemm", "other"],
+                             0.0)
     for name, us in events.items():
         low = name.lower()
-        group = next((g for g, key in groups.items() if key in name), None)
+        group = next((g for g, key in TENSOR_CORE_KERNELS.items()
+                      if key in name), None)
         if group is None:
             group = "gemm" if any(k in low for k in (
                 "gemm", "xmma", "cutlass", "nvjet", "cublas")) else "other"

@@ -26,34 +26,37 @@
 //
 // Two designs, chosen by dtype in `launch` (a dispatch by type; a bf16
 // launch that fails returns its error, nothing falls back):
-// - bf16 forward and dk/dv (flash_tc.cuh, hopper.cuh): tensor cores.
+// - bf16, all three (flash_tc.cuh, hopper.cuh): tensor cores.
 //   `wgmma.mma_async` m64n64k16 bf16 -> f32 takes every product; TMA
-//   brings K/V (forward) or Q/dO (dk/dv) tiles into a ring of two
-//   stages, 128-byte swizzled, bf16 (head dims padded with zeros to 64,
-//   128 or 256 in shared memory), so the next tile's copy overlaps this
-//   tile's products; one barrier per tile frees a stage.
+//   brings K/V (forward, dq) or Q/dO (dk/dv) tiles into a ring of two or
+//   three stages, 128-byte swizzled, bf16 (head dims padded with zeros
+//   to 64, 128 or 256 in shared memory), so the next tile's copy
+//   overlaps this tile's products; one barrier per tile frees a stage.
 //   Forward: one CTA per (b * H + h, 128 query rows), two warpgroups of
 //   64 rows; S = Q K^T from shared memory, the online softmax on the
 //   accumulator fragments (row max and sum over the four threads of a
 //   row), P rounded to bf16 in registers as the A operand of O += P V,
-//   V read MN-major. dk/dv: one CTA per (b * H + h, k tile); the products
-//   are transposed, s^T = K Q^T and dp^T = V dO^T, so g^T and ds^T leave
-//   the accumulators as the register A operand of dV += g^T dO and
+//   V read MN-major. dq: the same tiling with Q and dO resident; s and
+//   dp = dO V^T from shared memory, ds rounded to bf16 in registers as
+//   the A operand of dq += ds K, K read MN-major (at D 256 one 64-row
+//   tile, its dq split over the two warpgroups by head dim). dk/dv: one
+//   CTA per (b * H + h, k tile); the products are transposed,
+//   s^T = K Q^T and dp^T = V dO^T, so g^T and ds^T leave the
+//   accumulators as the register A operand of dV += g^T dO and
 //   dK += ds^T Q; lse and delta of each q tile are staged beside it.
-//   Causal q tiles of the forward run longest first (the tile index is
-//   reversed from blockIdx); dk/dv's k tile 0, its longest, already
-//   runs first. The exponential is exp2 of log2(e)-prescaled scores by
-//   ex2.approx: its ~2 ulp f32 error is far inside the bf16 bar, and
-//   one full-precision expf per visible pair would cost tens of us,
-//   a large share of the whole forward at tensor-core rate. lse stays
-//   the natural log: lse = m * ln 2 + log(l).
-// - f32 (all three) and bf16 dq: SIMT, one CTA of 256 threads per tile
-//   (64 x 64 tiles for D <= 128, 32 x 32 above), tiles staged as f32 in
-//   shared memory, every product an f32 FMA on the CUDA cores. f32 stays
-//   there because the tensor cores would compute it in TF32 (about 3
-//   decimal digits), and the f32 path is held to float32: 2e-6 for o and
-//   lse, 2e-5 for gradients, and the train_vs_plain step. bf16 dq is
-//   kernel 5, whose redesign is later work.
+//   Causal q tiles of the forward and dq run longest first (the tile
+//   index is reversed from blockIdx); dk/dv's k tile 0, its longest,
+//   already runs first. The exponential is exp2 of log2(e)-prescaled
+//   scores by ex2.approx: its ~2 ulp f32 error is far inside the bf16
+//   bar, and one full-precision expf per visible pair would cost tens
+//   of us, a large share of the whole forward at tensor-core rate. lse
+//   stays the natural log: lse = m * ln 2 + log(l).
+// - f32, all three: SIMT, one CTA of 256 threads per tile (64 x 64
+//   tiles for D <= 128, 32 x 32 above), tiles staged as f32 in shared
+//   memory, every product an f32 FMA on the CUDA cores. f32 stays there
+//   because the tensor cores would compute it in TF32 (about 3 decimal
+//   digits), and the f32 path is held to float32: 2e-6 for o and lse,
+//   2e-5 for gradients, and the train_vs_plain step.
 // Both designs loop inside the CTA over the tiles that can hold a
 // visible pair (causal and kv_len bound the loop; a tile whose pairs are
 // all masked, e.g. across segments, is skipped after one
@@ -74,8 +77,6 @@
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -436,8 +437,6 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
 
 // -- launch -------------------------------------------------------------
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
-
 // NJ = ceil(D_max / 16) columns per thread, by head dim; the tile edge by
 // NJ: 64 x 64 tiles for D <= 128, 32 x 32 above (the shared memory of
 // kernel 6). The launch's template arguments and its dynamic shared memory
@@ -465,34 +464,20 @@ int launch_kernel(Kernel kernel, dim3 grid, size_t smem, const Args& a,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NJ>
-int launch_typed(int which, const Args& a, int batch, cudaStream_t stream) {
+// f32 only: bf16 is tc::launch's
+template <int NJ>
+int launch_f32(int which, const Args& a, int batch, cudaStream_t stream) {
   constexpr int BQ = tile_for(NJ), BK = tile_for(NJ);
   const size_t smem = smem_bytes(which, a.head_dim);
   const int bh = batch * a.heads;
-  // bf16 comes here for dq only: its forward and dk/dv are tc::launch's
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == kFwd)
-      return launch_kernel(fwd_kernel<T, BQ, BK, NJ>,
-                           dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
-    if (which == kDkv)
-      return launch_kernel(dkv_kernel<T, BQ, BK, NJ>,
-                           dim3((a.t_k + BK - 1) / BK, bh), smem, a, stream);
-  }
-  return launch_kernel(dq_kernel<T, BQ, BK, NJ>,
+  if (which == kFwd)
+    return launch_kernel(fwd_kernel<float, BQ, BK, NJ>,
+                         dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
+  if (which == kDkv)
+    return launch_kernel(dkv_kernel<float, BQ, BK, NJ>,
+                         dim3((a.t_k + BK - 1) / BK, bh), smem, a, stream);
+  return launch_kernel(dq_kernel<float, BQ, BK, NJ>,
                        dim3((a.t_q + BQ - 1) / BQ, bh), smem, a, stream);
-}
-
-template <typename T>
-int launch_dtype(int which, const Args& a, int batch, cudaStream_t stream) {
-  switch (nj_of(a.head_dim)) {
-    case 4:
-      return launch_typed<T, 4>(which, a, batch, stream);
-    case 8:
-      return launch_typed<T, 8>(which, a, batch, stream);
-    default:
-      return launch_typed<T, 16>(which, a, batch, stream);
-  }
 }
 
 int launch(int which, Args a, int batch, int kv_len, int dtype,
@@ -504,11 +489,14 @@ int launch(int which, Args a, int batch, int kv_len, int dtype,
   // kv_len < 0: none given
   a.limit = (kv_len < 0 || kv_len > a.t_k) ? a.t_k : kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float>(which, a, batch, s);
-  // bf16 forward and dk/dv on the tensor cores; bf16 dq on SIMT
-  if (dtype == 1 && which != kDq) return tc::launch(which == kDkv, a, batch, s);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(which, a, batch, s);
-  return (int)cudaErrorInvalidValue;
+  // bf16 on the tensor cores, f32 on the CUDA cores
+  if (dtype == 1) return tc::launch(which, a, batch, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (nj_of(a.head_dim)) {
+    case 4: return launch_f32<4>(which, a, batch, s);
+    case 8: return launch_f32<8>(which, a, batch, s);
+    default: return launch_f32<16>(which, a, batch, s);
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const int* q_seg,
@@ -544,12 +532,9 @@ size_t ptt_flash_smem_bytes(int which, int head_dim) {
   return smem_bytes(which, head_dim);
 }
 
-// The same for the bf16 tensor-core kernels: which 0 = forward, 2 = dk/dv
-// (bf16 dq is the SIMT kernel of ptt_flash_smem_bytes).
+// The same for the bf16 tensor-core kernels.
 size_t ptt_flash_tc_smem_bytes(int which, int head_dim) {
-  return which == kFwd ? tc::fwd_smem(head_dim)
-         : which == kDkv ? tc::dkv_smem(head_dim)
-                         : smem_bytes(which, head_dim);
+  return tc::smem(which, head_dim);
 }
 
 // All three: dtype 0 = float32, 1 = bfloat16; kv_len < 0 for none;

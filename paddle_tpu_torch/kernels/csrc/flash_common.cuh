@@ -33,6 +33,8 @@ namespace ptt {
 namespace flash {
 
 constexpr int kThreads = 256;
+
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 constexpr float kNegInf = -1e30f;
 constexpr float kLFloor = 1e-30f;
 

@@ -1,8 +1,8 @@
-// The bf16 flash forward (kernel 4) and dk/dv (kernel 6) on Hopper's
-// tensor cores: wgmma m64n64k16 bf16 -> f32, operands brought in by TMA
-// into a ring of three stages (two at head dims above 128, for shared
-// memory), 128-byte swizzled (hopper.cuh). The design
-// note is the header of flash_attention.cu.
+// The bf16 flash forward (kernel 4), dq (kernel 5) and dk/dv (kernel 6)
+// on Hopper's tensor cores: wgmma m64n64k16 bf16 -> f32, operands brought
+// in by TMA into a ring of three stages (two at head dims above 128, for
+// shared memory), 128-byte swizzled (hopper.cuh). The design note is the
+// header of flash_attention.cu.
 
 #pragma once
 
@@ -92,11 +92,12 @@ struct Fwd {
       1024 + kQBytes + kStages * kStageBytes + 8 * (1 + kStages);
 };
 
+// K and V of the 64 keys at k0 into a stage (kernels 4 and 5)
 template <int NA>
-__device__ __forceinline__ void fwd_issue_kv(uint8_t* stage, uint64_t* bar,
-                                             const CUtensorMap* mk,
-                                             const CUtensorMap* mv, int k0,
-                                             int h, int b) {
+__device__ __forceinline__ void issue_kv(uint8_t* stage, uint64_t* bar,
+                                         const CUtensorMap* mk,
+                                         const CUtensorMap* mv, int k0, int h,
+                                         int b) {
   using C = Fwd<NA>;
   mbar_expect_tx(bar, C::kStageBytes);
 #pragma unroll
@@ -148,8 +149,8 @@ __global__ void __launch_bounds__(kTcThreads, NA == 1 ? 2 : 1)
         tma_load(sq + (at * C::BQ + r) * kRowBytes, &mq, qbar,
                  at * kAtomCols, h, q0 + r, b);
     for (int i = 0; i < C::kStages - 1 && i < n_tiles; ++i)
-      fwd_issue_kv<NA>(sstage + i * C::kStageBytes, &full[i], &mk, &mv,
-                       i * C::BK, h, b);
+      issue_kv<NA>(sstage + i * C::kStageBytes, &full[i], &mk, &mv,
+                   i * C::BK, h, b);
   }
 
   const Mask mask{a.t_q, a.limit, a.causal != 0};
@@ -192,8 +193,8 @@ __global__ void __launch_bounds__(kTcThreads, NA == 1 ? 2 : 1)
     any = __syncthreads_or(any) != 0;
     if (tid == 0 && i + C::kStages - 1 < n_tiles) {
       const int n = i + C::kStages - 1;
-      fwd_issue_kv<NA>(sstage + (n % C::kStages) * C::kStageBytes,
-                       &full[n % C::kStages], &mk, &mv, n * C::BK, h, b);
+      issue_kv<NA>(sstage + (n % C::kStages) * C::kStageBytes,
+                   &full[n % C::kStages], &mk, &mv, n * C::BK, h, b);
     }
     mbar_wait(&full[i % C::kStages], (i / C::kStages) & 1);
     // causal: a warpgroup whose rows all precede the tile sees none of it
@@ -300,6 +301,221 @@ __global__ void __launch_bounds__(kTcThreads, NA == 1 ? 2 : 1)
       }
     if ((lane & 3) == 0)
       a.lse_out[(size_t)bh * a.t_q + r] = m[hh] * kLn2 + logf(lf);
+  }
+}
+
+// -- kernel 5: dq ------------------------------------------------------------
+
+// NA = 1, 2: two warpgroups of 64 query rows each (BQ 128), each with
+// the whole dq of its rows. NA = 4: one q tile of 64 rows; the two
+// warpgroups split dq's head dim (each owns 2 atoms, 64 registers) and
+// both compute the whole s and dp, as kernel 6 splits dk and dv.
+template <int NA>
+struct Dq {
+  static constexpr int NRG = NA == 4 ? 1 : 2;  // row groups of 64
+  static constexpr int NSPLIT = 2 / NRG;       // head-dim splits
+  static constexpr int APW = NA / NSPLIT;      // atoms per warpgroup
+  static constexpr int BQ = 64 * NRG, BK = 64;
+  static constexpr int kStages = NA == 4 ? 2 : 3;  // K/V stages (smem)
+  static constexpr int kQBytes = NA * BQ * kRowBytes;  // Q, and dO after it
+  static constexpr int kKBytes = NA * BK * kRowBytes;  // K, and V after it
+  static constexpr int kStageBytes = 2 * kKBytes;
+  // Q, dO, the K/V ring, then lse * log2(e) and delta of the BQ rows
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes +
+                                  kStages * kStageBytes + 8 * BQ +
+                                  8 * (1 + kStages);
+  static_assert(kStageBytes == Fwd<NA>::kStageBytes, "issue_kv's stage");
+};
+
+// One CTA per (b * H + h, q tile); causal q tiles run longest first.
+// s = Q K^T and dp = dO V^T from shared memory; ds = p (dp - delta)
+// leaves the accumulators as the register A operand of dq += ds K, K
+// read MN-major from the same staged tile (the forward's P V with K in
+// V's place), so ds never touches shared memory. Each CTA owns its dq
+// rows and loops over k tiles in order: no atomics, the same bytes
+// every launch.
+template <int NA>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dq_tc_kernel(const Args a, const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 const __grid_constant__ CUtensorMap mdo) {
+  using C = Dq<NA>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* sdo = sq + C::kQBytes;
+  uint8_t* sstage = sdo + C::kQBytes;
+  float* row_lse2 =
+      reinterpret_cast<float*>(sstage + C::kStages * C::kStageBytes);
+  float* row_delta = row_lse2 + C::BQ;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(row_delta + C::BQ);
+  uint64_t* full = qbar + 1;
+
+  const int H = a.heads, bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // longest first
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int rg = wg % C::NRG, split = wg / C::NRG;
+  const int qw0 = q0 + 64 * rg;
+  const int lr0 = 64 * rg + 16 * ((tid % 128) / 32) + lane / 4;  // and +8
+  const int r0 = q0 + lr0;
+
+  int k_end = a.limit;
+  if (a.causal) k_end = min(k_end, min(q0 + C::BQ, a.t_q));
+  const int n_tiles = k_end > 0 ? (k_end + C::BK - 1) / C::BK : 0;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < C::kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * C::kQBytes);
+    for (int at = 0; at < NA; ++at)
+      for (int r = 0; r < C::BQ; r += kBoxRows) {
+        tma_load(sq + (at * C::BQ + r) * kRowBytes, &mq, qbar,
+                 at * kAtomCols, h, q0 + r, b);
+        tma_load(sdo + (at * C::BQ + r) * kRowBytes, &mdo, qbar,
+                 at * kAtomCols, h, q0 + r, b);
+      }
+    for (int i = 0; i < C::kStages - 1 && i < n_tiles; ++i)
+      issue_kv<NA>(sstage + i * C::kStageBytes, &full[i], &mk, &mv,
+                   i * C::BK, h, b);
+  }
+  // lse * log2(e) and delta of the CTA's rows, a quad of threads per row
+  // (kernel 6's order, dkv_stage_rows), while the copies land
+  for (int row = tid / 4; row < C::BQ; row += kTcThreads / 4) {
+    const int q = q0 + row;
+    const bool valid = q < a.t_q;
+    const size_t off = row_offset(b, valid ? q : 0, a.t_q, h, H, a.head_dim);
+    const float dl = quad_delta(static_cast<const __nv_bfloat16*>(a.o) + off,
+                                static_cast<const __nv_bfloat16*>(a.dout) + off,
+                                a.head_dim, valid);
+    if ((tid & 3) == 0) {
+      row_lse2[row] = valid ? a.lse[(size_t)bh * a.t_q + q] * kLog2e : 0.f;
+      row_delta[row] = dl;
+    }
+  }
+  __syncthreads();
+  const float lse2[2] = {row_lse2[lr0], row_lse2[lr0 + 8]};
+  const float delta[2] = {row_delta[lr0], row_delta[lr0 + 8]};
+
+  const Mask mask{a.t_q, a.limit, a.causal != 0};
+  const Dropout drop(a, bh);
+  const bool segs = a.q_seg != nullptr;
+  int qs[2] = {0, 0};
+  if (segs)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      qs[hh] = r < a.t_q ? a.q_seg[(size_t)b * a.t_q + r] : 0;
+    }
+  const float sl2 = a.scale * kLog2e;
+  float dq[C::APW][32];
+#pragma unroll
+  for (int at = 0; at < C::APW; ++at)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[at][e] = 0.f;
+  const uint32_t q_base = smem_u32(sq) + rg * 64 * kRowBytes;
+  const uint32_t do_base = smem_u32(sdo) + rg * 64 * kRowBytes;
+  mbar_wait(qbar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * C::BK;
+    int ks[16];
+    bool any = true;
+    if (segs) {
+      any = false;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int c = k0 + acc_col(4 * (e / 2) + (e % 2), lane);
+        ks[e] = c < a.t_k ? a.kv_seg[(size_t)b * a.t_k + c] : 0;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          any |= mask(r0 + 8 * hh, c, qs[hh], ks[e]);
+      }
+    }
+    // every thread is done with tile i - 1, so its stage may be refilled
+    any = __syncthreads_or(any) != 0;
+    if (tid == 0 && i + C::kStages - 1 < n_tiles) {
+      const int n = i + C::kStages - 1;
+      issue_kv<NA>(sstage + (n % C::kStages) * C::kStageBytes,
+                   &full[n % C::kStages], &mk, &mv, n * C::BK, h, b);
+    }
+    mbar_wait(&full[i % C::kStages], (i / C::kStages) & 1);
+    // causal: a warpgroup whose rows all precede the tile sees none of it
+    if (!any || (a.causal && k0 > qw0 + 63)) continue;
+
+    uint8_t* sk = sstage + (i % C::kStages) * C::kStageBytes;
+    const uint32_t sku = smem_u32(sk), sv = sku + C::kKBytes;
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = 0.f;
+      dp[e] = 0.f;
+    }
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+    qk_product<NA>(s, q_base, C::BQ * kRowBytes, sku, C::BK * kRowBytes);
+    qk_product<NA>(dp, do_base, C::BQ * kRowBytes, sv, C::BK * kRowBytes);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+    fence_acc(dp);
+
+    const bool edge = segs || k0 + C::BK > a.limit ||
+                      (a.causal && k0 + C::BK - 1 > qw0);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = acc_half(e), kpos = k0 + acc_col(e, lane);
+      const int qpos = r0 + 8 * hh;
+      // a masked score (-1e30) gives p = 0 exactly; select it
+      float p = exp2_approx(fmaf(s[e], sl2, -lse2[hh]));
+      if (edge &&
+          !mask(qpos, kpos, qs[hh], segs ? ks[2 * (e / 4) + (e % 2)] : 0))
+        p = 0.f;
+      float dpv = dp[e];
+      if (a.dropout) dpv = drop.keep(qpos, kpos) ? dpv * a.drop_scale : 0.f;
+      s[e] = p * (dpv - delta[hh]);
+    }
+    uint32_t dsa[4][4];
+    to_a_frags(s, dsa);
+
+    fence_frags(dsa);
+#pragma unroll
+    for (int at = 0; at < C::APW; ++at) fence_acc(dq[at]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int at = 0; at < C::APW; ++at)
+        wgmma_rs(dq[at], dsa[kk],
+                 desc(sku + (split * C::APW + at) * C::BK * kRowBytes +
+                          kk * 16 * kRowBytes,
+                      C::BK * kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int at = 0; at < C::APW; ++at) fence_acc(dq[at]);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out0);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= a.t_q) continue;
+    __nv_bfloat16* row = out + row_offset(b, r, a.t_q, h, H, a.head_dim);
+#pragma unroll
+    for (int at = 0; at < C::APW; ++at)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = (split * C::APW + at) * kAtomCols + acc_col(4 * j, lane);
+        if (d >= a.head_dim) continue;
+        const int e = 4 * j + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(row + d) =
+            __floats2bfloat162_rn(a.scale * dq[at][e], a.scale * dq[at][e + 1]);
+      }
   }
 }
 
@@ -565,19 +781,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 // -- launch -------------------------------------------------------------------
 
-inline size_t fwd_smem(int head_dim) {
-  switch (atoms_of(head_dim)) {
-    case 1: return Fwd<1>::kSmem;
-    case 2: return Fwd<2>::kSmem;
-    default: return Fwd<4>::kSmem;
-  }
+template <int NA>
+size_t smem_of(int which) {
+  return which == kFwd  ? Fwd<NA>::kSmem
+         : which == kDq ? Dq<NA>::kSmem
+                        : Dkv<NA>::kSmem;
 }
 
-inline size_t dkv_smem(int head_dim) {
+inline size_t smem(int which, int head_dim) {
   switch (atoms_of(head_dim)) {
-    case 1: return Dkv<1>::kSmem;
-    case 2: return Dkv<2>::kSmem;
-    default: return Dkv<4>::kSmem;
+    case 1: return smem_of<1>(which);
+    case 2: return smem_of<2>(which);
+    default: return smem_of<4>(which);
   }
 }
 
@@ -591,44 +806,43 @@ int launch_tc(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <int NA>
-int launch_fwd(const Args& a, int batch, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  int rc = make_map(&mq, a.q, batch, a.t_q, a.heads, a.head_dim);
-  if (rc == 0) rc = make_map(&mk, a.k, batch, a.t_k, a.heads, a.head_dim);
-  if (rc == 0) rc = make_map(&mv, a.v, batch, a.t_k, a.heads, a.head_dim);
-  if (rc != 0) return rc;
-  const dim3 grid(batch * a.heads, (a.t_q + Fwd<NA>::BQ - 1) / Fwd<NA>::BQ);
-  return launch_tc(fwd_tc_kernel<NA>, grid, Fwd<NA>::kSmem, stream, a, mq, mk,
-                   mv);
+// The tensor maps of q, k, v and (backward) dO; returns 0 or an error.
+inline int make_maps(const Args& a, int batch, bool with_do, CUtensorMap* mq,
+                     CUtensorMap* mk, CUtensorMap* mv, CUtensorMap* mdo) {
+  int rc = make_map(mq, a.q, batch, a.t_q, a.heads, a.head_dim);
+  if (rc == 0) rc = make_map(mk, a.k, batch, a.t_k, a.heads, a.head_dim);
+  if (rc == 0) rc = make_map(mv, a.v, batch, a.t_k, a.heads, a.head_dim);
+  if (rc == 0 && with_do)
+    rc = make_map(mdo, a.dout, batch, a.t_q, a.heads, a.head_dim);
+  return rc;
 }
 
 template <int NA>
-int launch_dkv(const Args& a, int batch, cudaStream_t stream) {
+int launch_na(int which, const Args& a, int batch, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  int rc = make_map(&mq, a.q, batch, a.t_q, a.heads, a.head_dim);
-  if (rc == 0) rc = make_map(&mk, a.k, batch, a.t_k, a.heads, a.head_dim);
-  if (rc == 0) rc = make_map(&mv, a.v, batch, a.t_k, a.heads, a.head_dim);
-  if (rc == 0)
-    rc = make_map(&mdo, a.dout, batch, a.t_q, a.heads, a.head_dim);
+  const int rc = make_maps(a, batch, which != kFwd, &mq, &mk, &mv, &mdo);
   if (rc != 0) return rc;
-  const dim3 grid(batch * a.heads, (a.t_k + Dkv<NA>::BK - 1) / Dkv<NA>::BK);
-  return launch_tc(dkv_tc_kernel<NA>, grid, Dkv<NA>::kSmem, stream, a, mq, mk,
-                   mv, mdo);
+  const size_t smem = smem_of<NA>(which);
+  const int bh = batch * a.heads;
+  if (which == kFwd)
+    return launch_tc(fwd_tc_kernel<NA>,
+                     dim3(bh, (a.t_q + Fwd<NA>::BQ - 1) / Fwd<NA>::BQ), smem,
+                     stream, a, mq, mk, mv);
+  if (which == kDq)
+    return launch_tc(dq_tc_kernel<NA>,
+                     dim3(bh, (a.t_q + Dq<NA>::BQ - 1) / Dq<NA>::BQ), smem,
+                     stream, a, mq, mk, mv, mdo);
+  return launch_tc(dkv_tc_kernel<NA>,
+                   dim3(bh, (a.t_k + Dkv<NA>::BK - 1) / Dkv<NA>::BK), smem,
+                   stream, a, mq, mk, mv, mdo);
 }
 
-// kernel 4 (dkv false) or kernel 6 (dkv true), bf16
-inline int launch(bool dkv, const Args& a, int batch, cudaStream_t stream) {
+// kernel 4, 5 or 6 (which: kFwd, kDq, kDkv), bf16
+inline int launch(int which, const Args& a, int batch, cudaStream_t stream) {
   switch (atoms_of(a.head_dim)) {
-    case 1:
-      return dkv ? launch_dkv<1>(a, batch, stream)
-                 : launch_fwd<1>(a, batch, stream);
-    case 2:
-      return dkv ? launch_dkv<2>(a, batch, stream)
-                 : launch_fwd<2>(a, batch, stream);
-    default:
-      return dkv ? launch_dkv<4>(a, batch, stream)
-                 : launch_fwd<4>(a, batch, stream);
+    case 1: return launch_na<1>(which, a, batch, stream);
+    case 2: return launch_na<2>(which, a, batch, stream);
+    default: return launch_na<4>(which, a, batch, stream);
   }
 }
 

@@ -29,8 +29,8 @@ Three kernels, each with two implementations of one contract:
   - `ptt_flash_fwd` replaces `_fwd_kernel` (flash.py:202),
   - `ptt_flash_dq` replaces `_dq_kernel` (:363),
   - `ptt_flash_dkv` replaces `_dkv_kernel` (:419).
-  In bf16 the forward and dk/dv run on the tensor cores (`wgmma` + TMA,
-  kernels/csrc/flash_tc.cuh); f32, and bf16 dq, on the CUDA cores.
+  In bf16 all three run on the tensor cores (`wgmma` + TMA,
+  kernels/csrc/flash_tc.cuh); in f32 on the CUDA cores.
 
 `FlashCore` (for `_flash_core`, :551-578) is the autograd Function:
 its forward launches kernel 4 and saves lse, its backward kernels 5 and
@@ -267,7 +267,7 @@ def shared_memory_bytes(which: str, head_dim: int,
                         dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory one CTA of kernel `which` ("fwd", "dq",
     "dkv") takes at this head dim in `dtype` (the kernel's own count:
-    bf16 forward and dk/dv are the tensor-core kernels)."""
+    the bf16 kernels are the tensor-core ones)."""
     lib = _library()
     fn = (lib.ptt_flash_tc_smem_bytes if dtype == torch.bfloat16
           else lib.ptt_flash_smem_bytes)

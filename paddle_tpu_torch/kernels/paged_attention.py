@@ -139,8 +139,10 @@ def ragged_paged_attention_reference(q, k_pool, v_pool, block_tables,
 
     Gathers [T, MB*BS, Hkv, D] (every token re-gathers its row's
     blocks), like the JAX oracle; masked lanes are selected to NEG_INF
-    and underflow to exact zeros, so the scratch contents of padded
-    table entries never reach a real row. With kq_pool/vq_pool (and
+    and underflow to exact zeros, so finite scratch contents of padded
+    table entries never reach a real row (a NaN there does, as 0 * NaN
+    in P.V, as in the JAX oracle; the kernel, like the Pallas kernel,
+    reads no block past a row's context). With kq_pool/vq_pool (and
     [NQ] k_scales/v_scales) the table is bias-encoded and int8 blocks
     are dequantized inside the gather (_gather_mixed)."""
     t, h, d = q.shape

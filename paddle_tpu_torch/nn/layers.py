@@ -64,7 +64,16 @@ class Embedding(nn.Module):
         nn.init.normal_(self.weight, 0.0, 0.02)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids].to(self.dtype)
+        """JAX's `jnp.take` in its default "fill" mode: ids in [-V, 0)
+        count from the end, ids outside [-V, V) give a row of NaN. A
+        clamped gather and a select, so a bad id neither raises nor
+        syncs the host (on CUDA an out-of-range index is a device-side
+        assert), and a NaN row sends no gradient to the table."""
+        v = self.num_embeddings
+        ids = torch.where(ids < 0, ids + v, ids)
+        valid = (ids >= 0) & (ids < v)
+        rows = self.weight[ids.clamp(0, v - 1)].to(self.dtype)
+        return torch.where(valid[..., None], rows, float("nan"))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-softmax projection: x @ table.T (LM output heads)."""

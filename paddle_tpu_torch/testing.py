@@ -317,3 +317,30 @@ def lm_stream(rng: np.random.Generator, batch: int, seq: int,
     rows = ((start + np.arange(seq + 1)[None, :] * 3) % vocab).astype(
         np.int32)
     return rows[:, :-1], rows[:, 1:]
+
+
+# The out-of-vocabulary serving case: a V-61 CausalLM (head dim 8, the
+# kernels' smallest) with causal_lm_tree(0, ...) weights on a 5-block
+# pool. The first batch's second prompt holds the id V (a NaN embedding
+# row, so NaN K/V in its blocks); each later request reuses blocks it
+# freed, one hits its cached prompt block, and the last batch counts
+# -V from the end and holds the out-of-vocabulary -V - 1. Greedy,
+# OOV_NEW_TOKENS new tokens a request.
+OOV_VOCAB = 61
+OOV_DIMS = dict(model_dim=32, num_heads=4, num_layers=2, ffn_dim=32,
+                num_kv_heads=2)
+OOV_ENGINE = dict(max_batch_size=4, block_size=4, num_blocks=6,
+                  max_prefill_tokens=8, tile_q=4)
+OOV_PROMPTS = [[[5, 9, 2], [7, 1, OOV_VOCAB, 3]], [[2, 8]],
+               [[6, 6, 6, 6, 6, 1]], [[4] * 8 + [9]], [[-1, 4, 2]],
+               [[7, 1, OOV_VOCAB, 3, 5]],
+               [[-OOV_VOCAB, 3], [-OOV_VOCAB - 1, 3]]]
+OOV_NEW_TOKENS = 4
+# The JAX engine's streams through its Pallas kernel, which reads a
+# row's kv blocks only up to its context. Its XLA reference reads every
+# table entry, so a stale NaN in a block past the context meets p = 0
+# in P.V (0 * NaN), and differs at the fourth request ([0, 0, 0, 13]).
+# The port's kernel follows the first, its plain version the second.
+OOV_KERNEL_STREAMS = [[[9, 9, 9, 13], [0, 0, 0, 0]], [[15, 15, 15, 13]],
+                      [[0, 0, 0, 0]], [[9, 13, 13, 13]], [[15, 9, 0, 0]],
+                      [[0, 0, 0, 0]], [[3, 9, 9, 0], [0, 0, 0, 0]]]

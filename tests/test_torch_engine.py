@@ -12,6 +12,7 @@ form of the JAX engine's one-compile rule).
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -21,7 +22,10 @@ from paddle_tpu_torch.engine import (CacheExhausted, PagedKVCache, Request,
                                      Scheduler, ServeEngine, serve_metadata)
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
-from paddle_tpu_torch.testing import causal_lm_tree
+from paddle_tpu_torch.testing import (OOV_DIMS, OOV_ENGINE,
+                                      OOV_KERNEL_STREAMS, OOV_NEW_TOKENS,
+                                      OOV_PROMPTS, OOV_VOCAB,
+                                      causal_lm_tree)
 
 VOCAB = 61
 DIMS = dict(model_dim=16, num_heads=4, num_layers=2, ffn_dim=32,
@@ -101,6 +105,96 @@ def test_preemption_streams_match_jax_engine(models):
     assert port.obs.get("ptpu_sched_preemptions_total").value > 0
     port.cache.assert_quiesced()
 
+
+# the second prompt holds an id >= V
+OOV_BATCH = [[5, 9, 2], [7, 1, VOCAB, 3]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_out_of_vocabulary_ids_match_jax_fill(dtype):
+    """The port's Embedding against JAX's (`jnp.take` in fill mode): ids
+    in [-V, 0) count from the end, ids outside [-V, V) give a NaN row
+    in the output dtype (compared NaN-equal, exactly), and a NaN row
+    sends the table no gradient."""
+    from paddle_tpu.nn.layers import Embedding as JaxEmbedding
+    from paddle_tpu_torch.nn.layers import Embedding
+    ids = np.array([[0, 5, VOCAB - 1, VOCAB],
+                    [VOCAB + 5, -1, -VOCAB, -VOCAB - 1]], np.int32)
+    coef = np.random.default_rng(0).standard_normal(
+        ids.shape + (8,)).astype(np.float32)
+    jm = JaxEmbedding(VOCAB, 8, dtype=getattr(jnp, dtype))
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1,), jnp.int32))["params"]
+
+    def loss(p):
+        out = jm.apply({"params": p}, jnp.asarray(ids)).astype(jnp.float32)
+        return jnp.sum(jnp.where(jnp.isnan(out), 0.0, out) * coef), out
+
+    (_, want), grad = jax.value_and_grad(loss, has_aux=True)(params)
+    tm = Embedding(VOCAB, 8, dtype=getattr(torch, dtype), device="cpu")
+    with torch.no_grad():
+        tm.weight.copy_(torch.from_numpy(np.array(params["weight"])))
+    out = tm(torch.from_numpy(ids).long())
+    assert out.dtype == getattr(torch, dtype)
+    got = out.float()
+    assert got.isnan().any(-1).tolist() == [[False, False, False, True],
+                                            [True, False, False, True]]
+    torch.testing.assert_close(got, torch.from_numpy(np.array(want)),
+                               rtol=0, atol=0, equal_nan=True)
+    torch.where(got.isnan(), 0.0, got).mul(
+        torch.from_numpy(coef)).sum().backward()
+    np.testing.assert_allclose(tm.weight.grad.numpy(),
+                               np.asarray(grad["weight"]), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_out_of_vocabulary_prompt_matches_jax_engine(models):
+    """A prompt with an id >= V: its NaN logits sample token 0 as the
+    JAX engine's do, the other request of the batch is unharmed, both
+    finish, and nothing stays running or holds a block."""
+    jm, jvars, tm = models
+    port = _port(tm)
+    got = port.generate(OOV_BATCH, max_new_tokens=4)
+    assert got == _jax(jm, jvars).generate(OOV_BATCH, max_new_tokens=4)
+    assert got == [[59, 59, 33, 43], [0, 0, 0, 0]]
+    assert not port.scheduler.running and not port.scheduler.waiting
+    port.cache.assert_quiesced()
+
+
+@pytest.mark.parametrize("path", ["reference", "interpret"])
+def test_blocks_reused_after_a_nan_request_match_jax_engine(path,
+                                                           monkeypatch):
+    """testing.OOV_PROMPTS: the NaN request's KV blocks go back to a
+    5-block pool and later requests reuse them. Through the JAX engine's
+    XLA reference (its CPU default) a stale NaN in a table entry past a
+    row's context meets p = 0 in P.V (0 * NaN) and collapses some later
+    streams to token 0; the port's plain version streams exactly the
+    same. Through
+    its Pallas kernel (interpret mode) the JAX engine streams
+    testing.OOV_KERNEL_STREAMS, which the port's CUDA kernel must stream
+    on the card (test_torch_kernels_gpu.py)."""
+    from paddle_tpu.obs.metrics import MetricsRegistry as JaxRegistry
+    tree = causal_lm_tree(0, OOV_VOCAB, **OOV_DIMS)
+    monkeypatch.setenv("PTPU_PAGED_KERNEL", path)
+    ref = JaxServeEngine(
+        JaxCausalLM(OOV_VOCAB, dropout=0.0, max_len=64, **OOV_DIMS),
+        jax.tree_util.tree_map(jnp.asarray, tree), registry=JaxRegistry(),
+        **OOV_ENGINE)
+    want = [ref.generate(p, max_new_tokens=OOV_NEW_TOKENS)
+            for p in OOV_PROMPTS]
+    if path == "interpret":
+        assert want == OOV_KERNEL_STREAMS
+        return
+    tm = CausalLM(OOV_VOCAB, dropout=0.0, max_len=64, device="cpu",
+                  **OOV_DIMS)
+    load_jax_params(tm, tree)
+    port = ServeEngine(tm, device="cpu", registry=MetricsRegistry(),
+                       **OOV_ENGINE)
+    assert [port.generate(p, max_new_tokens=OOV_NEW_TOKENS)
+            for p in OOV_PROMPTS] == want
+    assert want != OOV_KERNEL_STREAMS
+    assert not port.scheduler.running
+    port.cache.assert_quiesced()
 
 def test_batched_equals_solo(models):
     _, _, tm = models

@@ -21,9 +21,12 @@ from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.ops import linear_cross_entropy
 from paddle_tpu_torch.optim import Adam
-from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
-                                      RAGGED_ARGS, causal_lm_tree,
-                                      flash_case, int8_blocks, lm_stream,
+from paddle_tpu_torch.testing import (FLASH_ARGS, OOV_DIMS, OOV_ENGINE,
+                                      OOV_KERNEL_STREAMS, OOV_NEW_TOKENS,
+                                      OOV_PROMPTS, OOV_VOCAB, PAGED_ARGS,
+                                      QUANT_ARGS, RAGGED_ARGS,
+                                      causal_lm_tree, flash_case,
+                                      int8_blocks, lm_stream,
                                       packed_segment_ids, paged_case,
                                       ragged_case)
 
@@ -243,6 +246,28 @@ def test_engine_on_card_goes_through_the_kernel():
     eng.cache.assert_quiesced()
 
 
+def test_out_of_vocabulary_id_leaves_the_card_serving():
+    """A prompt with an id >= V on the card: its embedding row is NaN
+    (no device-side assert), it streams token 0, the other request of
+    its batch is unharmed, and nothing stays running. Requests served
+    after it in the same process reuse its blocks on a small pool: the
+    CUDA context survived, and every stream is the JAX engine's through
+    its Pallas kernel (testing.OOV_KERNEL_STREAMS, held against JAX in
+    tests/test_torch_engine.py)."""
+    _need_card()
+    model = CausalLM(OOV_VOCAB, dropout=0.0, max_len=64, device="cuda",
+                     **OOV_DIMS)
+    load_jax_params(model, causal_lm_tree(0, OOV_VOCAB, **OOV_DIMS))
+    eng = ServeEngine(model, registry=MetricsRegistry(), device="cuda",
+                      **OOV_ENGINE)
+    streams = [eng.generate(p, max_new_tokens=OOV_NEW_TOKENS)
+               for p in OOV_PROMPTS]
+    torch.cuda.synchronize()
+    assert not eng.scheduler.running and not eng.scheduler.waiting
+    eng.cache.assert_quiesced()
+    assert streams == OOV_KERNEL_STREAMS
+
+
 def test_int8_tier_engine_on_card_batched_equals_solo():
     """An engine with the int8 tier on the card: the shared prefix is
     quantized while fillers run, its fp copies are recycled, and the
@@ -373,9 +398,10 @@ def test_flash_kernels_match_plain_masks(mode, t, dtype):
 
 
 # (b, h, t_q, t_k, d, mode): shapes the bf16 tensor-core kernels (128
-# query rows and 64 keys per CTA in the forward, 128 or 64 keys and 64
-# query rows a stage in dk/dv, head dims padded to 64, 128 or 256) tile
-# unevenly; f32 runs the same shapes through the SIMT kernels
+# query rows and 64 keys per CTA in the forward and dq, 64 query rows at
+# D 256 in dq, 128 or 64 keys and 64 query rows a stage in dk/dv, head
+# dims padded to 64, 128 or 256) tile unevenly; f32 runs the same
+# shapes through the SIMT kernels
 TC_SHAPES = {
     "cross_causal_tq_gt_tk": (2, 2, 333, 200, 64, "causal"),
     "cross_causal_tq_lt_tk": (2, 2, 200, 333, 64, "causal"),
@@ -451,9 +477,9 @@ def test_flash_core_grads_match_autograd_of_plain_forward(mode):
 
 @pytest.mark.parametrize("mode", FLASH_MODES)
 def test_flash_core_bf16_grads_match_autograd_of_plain_forward(mode):
-    """bf16 FlashCore (tensor-core kernels 4 and 6, SIMT kernel 5 on the
-    same inputs) against PyTorch autograd through the plain forward in
-    f32 on the same bf16 values: o, dq, dk and dv at 2e-2 absolute plus
+    """bf16 FlashCore (tensor-core kernels 4, 5 and 6) against PyTorch
+    autograd through the plain forward in f32 on the same bf16 values:
+    o, dq, dk and dv at 2e-2 absolute plus
     2e-2 relative (the kernels round p, ds, g and their outputs to
     bf16; autograd of the f32 forward rounds nothing)."""
     _need_card()
@@ -498,12 +524,14 @@ def test_mha_sends_every_kernel_head_dim_to_flash(d):
     torch.testing.assert_close(o, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_kernels_are_deterministic(dtype):
-    """No atomics: two launches give the same bytes."""
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
+                                     ("bfloat16", 128), ("bfloat16", 256)])
+def test_flash_kernels_are_deterministic(dtype, d):
+    """No atomics: two launches give the same bytes (bf16 at D 256 runs
+    dq and dk/dv with the head dim split over two warpgroups)."""
     _need_card()
     dt = getattr(torch, dtype)
-    case = flash_case(2, 300, 300, 4, 64, seed=9)
+    case = flash_case(2, 300, 300, 4, d, seed=9)
     q, k, v, do = (torch.from_numpy(case[x]).cuda().to(dt)
                    for x in FLASH_ARGS)
     kw, (q_seg, kv_seg), seed = _flash_mode("dropout", 300, 2)
