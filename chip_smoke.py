@@ -86,6 +86,8 @@ EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
 FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
 # the bf16 forward, dq and dk/dv kernels (entry points in FLASH_SRC)
 FLASH_TC_SRC = "paddle_tpu_torch/kernels/csrc/flash_tc.cuh"
+# kernels 1 and 2 (entry points in csrc/ragged_paged_attention.cu)
+RAGGED_TC_SRC = "paddle_tpu_torch/kernels/csrc/ragged_tc.cuh"
 SDPA_FWD = ("F.scaled_dot_product_attention(is_causal=True), forward, "
             "device time")
 SDPA_BWD = ("F.scaled_dot_product_attention(is_causal=True), backward: "
@@ -96,13 +98,11 @@ KERNEL_ROWS = {
     # name: (source, the TPU kernel it replaces, library_ms note: why
     # it is null, or which PyTorch call it times)
     "ragged_paged_attention": (
-        "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
-        "paddle_tpu/kernels/paged_attention.py:428",
+        RAGGED_TC_SRC, "paddle_tpu/kernels/paged_attention.py:428",
         "no single PyTorch call computes a block-table-gathered ragged "
         "attention"),
     "ragged_paged_attention_mixed": (
-        "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
-        "paddle_tpu/kernels/paged_attention.py:462",
+        RAGGED_TC_SRC, "paddle_tpu/kernels/paged_attention.py:462",
         "no single PyTorch call reads int8 blocks through a bias-encoded "
         "table"),
     "paged_attention": (
@@ -280,6 +280,9 @@ def phase_device(cuda: bool) -> dict:
 TENSOR_CORE_KERNELS = {"flash_fwd": "fwd_tc_kernel",
                        "flash_dq": "dq_tc_kernel",
                        "flash_dkv": "dkv_tc_kernel"}
+# the ragged kernels' split template (kernels 1 and 2, csrc/ragged_tc.cuh):
+# its bf16 instantiations must hold HMMA (mma.sync), and none may spill
+RAGGED_SPLIT_KERNEL = "split_kernel"
 
 
 def ptxas_entries(report: str) -> Dict[str, dict]:
@@ -349,14 +352,29 @@ def sass_tensor_ops(library: Path) -> Optional[Dict[str, dict]]:
     return _demangle(out)
 
 
+def library_kernels(info) -> Tuple[Dict[str, dict], bool]:
+    """Per kernel instantiation of a built library: ptxas's registers
+    and spills, and (where cuobjdump exists) its HGMMA/HMMA count in the
+    SASS; and whether the SASS was read."""
+    sass = sass_tensor_ops(info.path)
+    kernels = {}
+    for name, r in ptxas_entries(info.ptxas).items():
+        row = dict(r)
+        if sass is not None:
+            row.update(sass.get(name, {}))
+        kernels[name] = row
+    return kernels, sass is not None
+
+
 def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
     """Build every kernel from this checkout's sources (one nvcc per
     source, in parallel); report ptxas's registers/spills, the dynamic
-    shared memory a CTA takes at the paths' shapes, and for each flash
-    kernel instantiation its registers, spills and tensor-core
-    instructions in the SASS. Fails if a bf16 kernel 4, 5 or 6
-    instantiation has no HGMMA, or if a SIMT kernel is built for bf16.
-    Returns, per flash kernel, whether its bf16 path runs on the tensor
+    shared memory a CTA takes at the paths' shapes, and for each ragged
+    and flash kernel instantiation its registers, spills and tensor-core
+    instructions in the SASS. Fails if a bf16 instantiation of kernel 1
+    or 2 has no HMMA or any of theirs spills, if a bf16 kernel 4, 5 or 6
+    instantiation has no HGMMA, or if a SIMT flash kernel is built for
+    bf16. Returns, per kernel, whether its bf16 path runs on the tensor
     cores."""
     if not cuda:
         emit({"phase": "build", "skipped": "no nvcc in a CPU rehearsal"})
@@ -370,8 +388,10 @@ def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
                           "nvcc_seconds": round(i.seconds, 3),
                           "ptxas": build.ptxas_report(n).splitlines()}
                       for n, i in infos.items()},
-          "ragged_paged_attention_dynamic_smem_bytes":
-              paged.shared_memory_bytes(cfg["tile_q"], 1, d, bs),
+          "ragged_paged_attention_dynamic_smem_bytes": {
+              str(dt).replace("torch.", ""): paged.shared_memory_bytes(
+                  cfg["tile_q"], 1, d, bs, dtype=dt)
+              for dt in (torch.float32, torch.bfloat16)},
           "paged_attention_dynamic_smem_bytes_gqa":
               paged.shared_memory_bytes(1, h // cfg["gqa_kv_heads"], d, bs,
                                         "paged_attention"),
@@ -380,27 +400,34 @@ def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
                   which: flash.shared_memory_bytes(which, d, dt)
                   for which in ("fwd", "dq", "dkv")}
               for dt in (torch.float32, torch.bfloat16)}})
-    lib = infos["flash_attention"]
-    regs = ptxas_entries(lib.ptxas)
-    sass = sass_tensor_ops(lib.path)
-    kernels = {}
-    for name, r in regs.items():
-        row = dict(r)
-        if sass is not None:
-            row.update(sass.get(name, {}))
-        kernels[name] = row
-    tensor_cores = {}
+    ragged, have_sass = library_kernels(infos["ragged_paged_attention"])
+    split = {n: k for n, k in ragged.items() if RAGGED_SPLIT_KERNEL in n}
+    check(bool(split), f"no {RAGGED_SPLIT_KERNEL} instantiation in the build")
+    spills = {n: k for n, k in split.items()
+              if k.get("spill_store_bytes", 0) or k.get("spill_load_bytes", 0)}
+    check(not spills, f"ragged split kernels spill: {spills}")
+    if have_sass:
+        no_mma = [n for n, k in split.items()
+                  if "bfloat16" in n and not k.get("HMMA", 0)]
+        check(not no_mma, f"bf16 ragged kernels without HMMA: {no_mma}")
+    emit({"phase": "build", "ragged_kernels": ragged,
+          "cuobjdump": "found" if have_sass else
+          "missing: no SASS instruction counts on this machine"})
+    tensor_cores = dict.fromkeys(
+        ("ragged_paged_attention", "ragged_paged_attention_mixed"),
+        have_sass)
+    kernels, have_sass = library_kernels(infos["flash_attention"])
     for kernel, template in TENSOR_CORE_KERNELS.items():
         inst = {n: k for n, k in kernels.items() if template in n}
         check(bool(inst), f"no {template} instantiation in the build")
-        if sass is not None:
+        if have_sass:
             check(all(k.get("HGMMA", 0) > 0 for k in inst.values()),
                   f"{template}: an instantiation without HGMMA: {inst}")
-        tensor_cores[kernel] = sass is not None
+        tensor_cores[kernel] = have_sass
     simt_bf16 = [n for n in kernels if "bfloat16" in n]
     check(not simt_bf16, f"SIMT flash kernels built for bf16: {simt_bf16}")
     emit({"phase": "build", "flash_kernels": kernels,
-          "cuobjdump": "found" if sass is not None else
+          "cuobjdump": "found" if have_sass else
           "missing: no SASS instruction counts on this machine"})
     return tensor_cores
 
@@ -508,7 +535,8 @@ def _timed(name: str, launch, plain, cost, dtype, cfg: dict, cuda: bool,
     plain_ms = time_ms(plain, cfg["plain_iters"], 2, cuda)
     nbytes, flops = cost
     bytes_ms, ops_ms, bound_ms = bound(nbytes, flops, dtype)
-    out = {"ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+    out = {"ms": ms, "device_ms": device_ms, "events_ms": events_ms,
+           "plain_ms": plain_ms,
            "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
@@ -524,9 +552,13 @@ def _timed(name: str, launch, plain, cost, dtype, cfg: dict, cuda: bool,
 
 def phase_kernel_time(cfg: dict, device: torch.device, card: dict) -> dict:
     """Each kernel, its plain version and its bound at its path's
-    busiest shape. Launches cycle over one pool copy per model layer,
-    as a step does, so the 50 MB L2 cache does not hold one launch's
-    K/V blocks for the next.
+    busiest shape, each kernel on the device's clock (`device_time`: the
+    summed device time of a call's kernels — the ragged calls' split and
+    combine kernels — over cfg["time_iters"] calls, with the host's
+    enqueue time beside it) and under CUDA events around as many
+    back-to-back calls. Launches cycle over one pool copy per model
+    layer, as a step does, so the 50 MB L2 cache does not hold one
+    launch's K/V blocks for the next.
     - ragged (fp, bf16 as the engine phase) and mixed (f32 as the
       engine_int8 phase serves, and bf16): the engine's busiest step,
       a 456-token chunk from 256 plus 7 decode rows; for the mixed
@@ -547,6 +579,13 @@ def phase_kernel_time(cfg: dict, device: torch.device, card: dict) -> dict:
     def half_prefix(row: int, j: int, q_start: int) -> bool:
         return (j + 1) * bs <= q_start and j % 2 == 0
 
+    def timed(name, launch, plain, cost, dtype, **info):
+        dev = device_time(launch, cfg["time_iters"], cuda)
+        return _timed(name, launch, plain, cost, dtype, cfg, cuda, card,
+                      device_ms=dev["device_ms"], clock=dev["clock"],
+                      host_enqueue_ms=dev["host_enqueue_ms"],
+                      device_kernel_ms=dev["kernel_ms"], **info)
+
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         geom = (cfg["time_rows"], h, h, d, bs, cfg["tile_q"],
@@ -557,13 +596,12 @@ def phase_kernel_time(cfg: dict, device: torch.device, card: dict) -> dict:
         info = dict(tokens=int(q.shape[0]), rows=len(cfg["time_rows"]))
         if dtype == torch.bfloat16:
             pools = cycle((args[1], args[2]))
-            out["ragged_paged_attention"] = _timed(
+            out["ragged_paged_attention"] = timed(
                 "ragged_paged_attention",
                 lambda: paged.ragged_paged_attention(q, *next(pools), *meta),
                 lambda: paged.ragged_paged_attention_reference(
                     q, *next(pools), *meta),
-                step_cost(args, q.element_size()), dtype, cfg, cuda, card,
-                **info)
+                step_cost(args, q.element_size()), dtype, **info)
         margs, quant, _, n8 = mixed_args(*geom, half_prefix)
         mmeta = margs[3:]
         mpools = cycle((margs[1], margs[2], quant["kq_pool"],
@@ -574,26 +612,26 @@ def phase_kernel_time(cfg: dict, device: torch.device, card: dict) -> dict:
             return fn(q, k, v, *mmeta, kq_pool=kq, vq_pool=vq,
                       k_scales=quant["k_scales"],
                       v_scales=quant["v_scales"])
-        timing = _timed(
+        timing = timed(
             "ragged_paged_attention_mixed",
             lambda: mixed(paged.ragged_paged_attention),
             lambda: mixed(paged.ragged_paged_attention_reference),
-            step_cost(margs, q.element_size()), dtype, cfg, cuda, card,
-            int8_blocks=n8, **info)
+            step_cost(margs, q.element_size()), dtype, int8_blocks=n8,
+            **info)
         if dtype == torch.float32:
             out["ragged_paged_attention_mixed"] = timing
         case = paged_case(cfg["paged_time_lens"], h, h, d, bs,
                           cfg["num_blocks"], cfg["max_blocks"], SEED + 6)
         pargs = _to_device(case, dtype, device, PAGED_ARGS)
         ppools = cycle((pargs[1], pargs[2]))
-        timing = _timed(
+        timing = timed(
             "paged_attention",
             lambda: paged.paged_attention(pargs[0], *next(ppools),
                                           *pargs[3:]),
             lambda: paged.paged_attention_reference(pargs[0], *next(ppools),
                                                     *pargs[3:]),
-            decode_cost(pargs, pargs[0].element_size()), dtype, cfg, cuda,
-            card, rows=len(cfg["paged_time_lens"]),
+            decode_cost(pargs, pargs[0].element_size()), dtype,
+            rows=len(cfg["paged_time_lens"]),
             contexts=cfg["paged_time_lens"])
         if dtype == torch.float32:
             out["paged_attention"] = timing
@@ -1113,11 +1151,13 @@ def device_time(fn, iters: int, cuda: bool) -> dict:
     """Device time of one call of `fn`, ms: the summed device time of the
     kernels in a `torch.profiler` trace of `iters` calls (or, if the
     trace holds no device time, CUDA-graph replays under CUDA events),
-    with the host's enqueue time per call beside it and the names of
-    the kernels that ran."""
+    with the host's enqueue time per call beside it and each kernel's
+    device time (`kernel_ms`, by name; the ragged calls' split and
+    combine kernels apart)."""
     if not cuda:
         return {"device_ms": None, "host_enqueue_ms": None,
-                "clock": "not measured (no card)", "kernels": []}
+                "clock": "not measured (no card)", "kernels": [],
+                "kernel_ms": {}}
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -1132,7 +1172,9 @@ def device_time(fn, iters: int, cuda: bool) -> dict:
     per_kernel = device_events(prof)
     total_us = sum(per_kernel.values())
     out = {"host_enqueue_ms": host * 1e3 / iters,
-           "kernels": sorted(per_kernel)}
+           "kernels": sorted(per_kernel),
+           "kernel_ms": {n: us / 1e3 / iters
+                         for n, us in sorted(per_kernel.items())}}
     if total_us > 0:
         return {"device_ms": total_us / 1e3 / iters,
                 "clock": "torch.profiler device time", **out}

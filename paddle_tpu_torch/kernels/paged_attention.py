@@ -45,14 +45,17 @@ Each kernel has two implementations with one contract:
   - `ragged_paged_attention.cu` `ptt_ragged_paged_attention` replaces
     `_ragged_kernel` (paddle_tpu/kernels/paged_attention.py:428), and
     `ptt_ragged_paged_attention_mixed` replaces `_ragged_kernel_mixed`
-    (:462);
+    (:462); each call runs a split kernel over fixed-position kv splits
+    and, where a tile spans more than one split, a kernel that combines
+    the splits in order (`ragged_schedule` sizes both);
   - `paged_attention.cu` replaces `_paged_kernel` (:173).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,6 +67,85 @@ _KERNEL = "ragged_paged_attention"
 _PAGED_KERNEL = "paged_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM_BYTES = 232448          # one CTA's dynamic shared memory on H100
+
+# The ragged kernels' kv schedule (csrc/ragged_tc.cuh). It is anchored at
+# position 0 of every row and depends on the dtype and head dim only, so
+# a query's output bits do not depend on how its prompt was chunked.
+RAGGED_SPLIT = 256        # S: kv positions one CTA walks
+RAGGED_LANES = 16         # kv positions a warp takes of each chunk
+# depth of the K/V ring in shared memory, by element bytes: bf16 overlaps
+# a chunk's copies with the previous chunk's products; f32 gains more from
+# the CTAs a single stage lets share an SM
+RAGGED_STAGES = {2: 2, 4: 1}
+
+
+class RaggedSchedule(NamedTuple):
+    """How one ragged call is cut: `chunk` (C) kv positions an iteration,
+    one warp per 16 of them; `split` (S) kv positions a CTA. A CTA holds
+    `warp_rows` query rows of one tile, `row_groups` CTAs a tile's
+    tile_q * G rows. `threads` and `smem_bytes` of a split-kernel CTA."""
+    chunk: int
+    split: int
+    warp_rows: int
+    row_groups: int
+    threads: int
+    smem_bytes: int
+
+
+def ragged_split_blocks(split: int, block_size: int) -> int:
+    """Table entries the positions of one split span at most."""
+    return (split - 1) // block_size + 2
+
+
+def ragged_smem_bytes(head_dim: int, elem_bytes: int, chunk: int,
+                      split: int, block_size: int, rows: int) -> int:
+    """Dynamic shared memory of one split-kernel CTA (the source's
+    smem_bytes): the K/V ring and the CTA's `rows` q rows, each row
+    padded (bf16: the head dim to the mma's k16) plus 16 bytes, and the
+    split's table entries and their two int8 scales (each array rounded
+    up to 16 bytes); then, reusing it, the warps' f32 states of those
+    rows with each row's max and l."""
+    dk = -(-head_dim // 16) * 16 if elem_bytes == 2 else head_dim
+    row_bytes = (dk + 16 // elem_bytes) * elem_bytes
+    walk = ((RAGGED_STAGES[elem_bytes] * 2 * chunk + rows) * row_bytes
+            + 3 * ((ragged_split_blocks(split, block_size) + 3) // 4 * 16))
+    merge = (chunk // RAGGED_LANES * (head_dim + 2) + 2) * rows * 4
+    return max(walk, merge)
+
+
+@functools.lru_cache(maxsize=None)
+def ragged_schedule(dtype: torch.dtype, head_dim: int, rows: int,
+                    block_size: int) -> RaggedSchedule:
+    """The schedule of a ragged call in `dtype` at `head_dim`, for tiles
+    of `rows` = tile_q * G query rows over blocks of `block_size`. C is 64
+    (four warps of 16 lanes) except f32 above head dim 128, where 32
+    halves a stage of K/V; a bf16 CTA holds 16 query rows (an mma tile),
+    an f32 one 8. C and S depend on the dtype and head dim only."""
+    bf16 = dtype == torch.bfloat16
+    elem = 2 if bf16 else 4
+    chunk = 32 if (not bf16 and head_dim > 128) else 64
+    warp_rows = 16 if bf16 else 8
+    return RaggedSchedule(
+        chunk=chunk, split=RAGGED_SPLIT, warp_rows=warp_rows,
+        row_groups=-(-rows // warp_rows),
+        threads=chunk // RAGGED_LANES * 32,
+        smem_bytes=ragged_smem_bytes(head_dim, elem, chunk, RAGGED_SPLIT,
+                                     block_size, warp_rows))
+
+
+def ragged_num_splits(max_blocks: int, block_size: int,
+                      split: int = RAGGED_SPLIT) -> int:
+    """Splits of a table of max_blocks blocks: the split kernel launches
+    that many CTAs per tile (one past the tile's last block returns at
+    once)."""
+    return -(-max_blocks * block_size // split)
+
+
+def ragged_workspace_shape(num_tiles: int, num_kv_heads: int, splits: int,
+                           rows: int, head_dim: int) -> Tuple[int, ...]:
+    """The f32 partials of a call: per (tile, kv head, split, query row)
+    acc [D], then m and l."""
+    return (num_tiles, num_kv_heads, splits, rows, head_dim + 2)
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables,
@@ -231,9 +313,9 @@ def _library(name: str = _KERNEL) -> ctypes.CDLL:
     if name not in _TYPED:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == _KERNEL:
-            entry = {"ptt_ragged_paged_attention": [p] * 9,
-                     "ptt_ragged_paged_attention_mixed": [p] * 13}
-            tail = [i] * 7 + [f, i, p]
+            entry = {"ptt_ragged_paged_attention": [p] * 10,
+                     "ptt_ragged_paged_attention_mixed": [p] * 14}
+            tail = [i] * 9 + [f, i, p]
             smem = lib.ptt_ragged_paged_attention_smem_bytes
         else:
             entry = {"ptt_paged_attention": [p] * 6}
@@ -243,7 +325,7 @@ def _library(name: str = _KERNEL) -> ctypes.CDLL:
             fn = getattr(lib, fn_name)
             fn.argtypes = ptrs + tail
             fn.restype = ctypes.c_int
-        smem.argtypes = [i] * 4
+        smem.argtypes = [i] * (5 if name == _KERNEL else 4)
         smem.restype = ctypes.c_size_t
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
@@ -252,14 +334,29 @@ def _library(name: str = _KERNEL) -> ctypes.CDLL:
 
 
 def shared_memory_bytes(tile_q: int, groups: int, head_dim: int,
-                        block_size: int, kernel: str = _KERNEL) -> int:
-    """Dynamic shared memory one CTA of `kernel` takes (the kernel's own
-    count, so a caller can report it beside ptxas's registers); the
-    paged-decode kernel holds one query per head (tile_q 1)."""
+                        block_size: int, kernel: str = _KERNEL,
+                        dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory one CTA of `kernel` takes, so a caller can
+    report it beside ptxas's registers: the ragged split kernel's from
+    its schedule (in `dtype`), the paged-decode kernel's (one query per
+    head, tile_q 1) from the library's own count."""
+    if kernel == _KERNEL:
+        return ragged_schedule(dtype, head_dim, tile_q * groups,
+                               block_size).smem_bytes
     lib = _library(kernel)
-    fn = (lib.ptt_ragged_paged_attention_smem_bytes if kernel == _KERNEL
-          else lib.ptt_paged_attention_smem_bytes)
-    return int(fn(tile_q, groups, head_dim, block_size))
+    return int(lib.ptt_paged_attention_smem_bytes(tile_q, groups, head_dim,
+                                                  block_size))
+
+
+def library_smem_bytes(dtype: torch.dtype, head_dim: int, rows: int,
+                       block_size: int) -> int:
+    """The ragged library's own count of a split-kernel CTA's shared
+    memory for ragged_schedule(dtype, head_dim, rows, block_size) (the
+    card's tests hold the Python count to it)."""
+    sched = ragged_schedule(dtype, head_dim, rows, block_size)
+    return int(_library().ptt_ragged_paged_attention_smem_bytes(
+        head_dim, 2 if dtype == torch.bfloat16 else 4, sched.chunk,
+        sched.split, block_size))
 
 
 def _check_launch(name: str, q, floats, ints, quant=()) -> None:
@@ -315,11 +412,19 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, q_starts,
     _check_launch("ragged_paged_attention", q, (q, k_pool, v_pool), ints,
                   quant)
     lib = _library()
-    _check_smem(shared_memory_bytes(tq, h // hkv, d, bs),
-                f"tile_q={tq} x groups={h // hkv} x head_dim={d} with "
-                f"block_size={bs}")
+    rows = tq * (h // hkv)
+    sched = ragged_schedule(q.dtype, d, rows, bs)
+    _check_smem(sched.smem_bytes, f"tile_q={tq} x groups={h // hkv} x "
+                                  f"head_dim={d} in {q.dtype}")
+    mb = block_tables.shape[1]
+    splits = ragged_num_splits(mb, bs, sched.split)
     out = torch.empty_like(q)
-    tail = (nt, tq, h, hkv, d, bs, block_tables.shape[1], float(scale),
+    # the splits' partials; with one split every tile writes its output
+    ws = (torch.empty(ragged_workspace_shape(nt, hkv, splits, rows, d),
+                      dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
+    tail = (out.data_ptr(), None if ws is None else ws.data_ptr(), nt, tq,
+            h, hkv, d, bs, mb, sched.chunk, sched.split, float(scale),
             _DTYPE_CODES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -327,13 +432,11 @@ def _launch(q, k_pool, v_pool, block_tables, context_lens, q_starts,
             rc = lib.ptt_ragged_paged_attention_mixed(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 *[x.data_ptr() for x in quant],
-                *[x.data_ptr() for x in ints], out.data_ptr(), *tail,
-                stream)
+                *[x.data_ptr() for x in ints], *tail, stream)
         else:
             rc = lib.ptt_ragged_paged_attention(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                *[x.data_ptr() for x in ints], out.data_ptr(), *tail,
-                stream)
+                *[x.data_ptr() for x in ints], *tail, stream)
     _raise_on(lib, rc, "ragged_paged_attention")
     if quant:
         ragged_paged_attention.mixed_launches += 1
@@ -383,7 +486,9 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 
 # kernel launches since the last reset (set to 0 to reset): `launches`
 # counts kernel 1 (fp pools), `mixed_launches` kernel 2 (int8 pools
-# given); the plain version on CPU tensors counts in neither
+# given), one a call although a call runs the split kernel and, with
+# more than one split, the combine kernel; the plain version on CPU
+# tensors counts in neither
 ragged_paged_attention.launches = 0
 ragged_paged_attention.mixed_launches = 0
 

@@ -1,6 +1,7 @@
-"""The port stands alone: no file under paddle_tpu_torch/ and not
-chip_smoke.py imports `jax` or the JAX package `paddle_tpu` (as opposed
-to `paddle_tpu_torch`), and importing the port loads neither."""
+"""The port stands alone: no file under paddle_tpu_torch/ and none of the
+card scripts (chip_smoke.py, chip_train_losses.py, chip_ragged_sweep.py)
+imports `jax` or the JAX package `paddle_tpu` (as opposed to
+`paddle_tpu_torch`), and importing the port loads neither."""
 
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_train_losses.py",
+    ROOT / "chip_ragged_sweep.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -38,7 +40,8 @@ def test_scan_covers_the_package():
                 "optim/lr_schedules.py", "core/executor.py",
                 "models/convert.py", "nn/layers.py"):
         assert f"paddle_tpu_torch/{mod}" in names
-    assert "chip_smoke.py" in names
+    assert {"chip_smoke.py", "chip_train_losses.py",
+            "chip_ragged_sweep.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -44,6 +44,14 @@ CASES = {
     "engine_shape": ([(300, 1), (160, 64), (250, 37), (40, 40)],
                      8, 8, 64, 16, 8),
     "engine_shape_d256": ([(70, 9), (33, 1)], 2, 1, 256, 16, 8),
+    # decode rows at contexts around the kv split S = 256 (S - 1, S,
+    # S + 1, 2S + BS - 1) and at the LM's max_len 2048
+    "split_edges": ([(255, 1), (256, 1), (257, 1), (527, 1), (2048, 1)],
+                    8, 8, 64, 16, 8),
+    # a chunk across the first split boundary, one across two
+    "chunk_across_splits": ([(300, 100), (712, 456), (20, 1)],
+                            8, 8, 64, 16, 8),
+    "gqa_across_splits": ([(600, 40), (530, 1), (257, 9)], 8, 2, 64, 16, 8),
 }
 
 
@@ -200,6 +208,105 @@ def test_ragged_kernel_rows_are_independent():
     a = paged.ragged_paged_attention(*ts)
     b = paged.ragged_paged_attention(*fewer)
     assert torch.equal(a[:-2 * tq], b[:-tq])
+
+
+def _position_case(p, long_start, long_len, seed):
+    """One row's K/V (800 positions, H 8 = Hkv, D 64, BS 16, tile_q 8)
+    read by three rows through the same table: a decode row at position
+    p (ctx p + 1), a 4-query chunk ending at p, and a chunk of long_len
+    queries from long_start (ctx past p). Query p holds the same vector
+    in all three. Returns the case (testing.ragged_case's keys, the null
+    row last) and the flat index of query p in each row."""
+    h, d, bs, tq, length = 8, 64, 16, 8, 800
+    rng = np.random.default_rng(seed)
+    nblk = length // bs
+    ids = rng.permutation(np.arange(1, nblk + 1)).astype(np.int32)
+    rows = [(p + 1, p, 1), (p + 1, p - 3, 4),
+            (long_start + long_len, long_start, long_len)]
+    bt = np.zeros((len(rows) + 1, nblk), np.int32)
+    cl = np.ones((len(rows) + 1,), np.int32)
+    qs = np.zeros((len(rows) + 1,), np.int32)
+    tile_rows, tile_offs, where = [], [], []
+    for i, (ctx, start, qlen) in enumerate(rows):
+        bt[i], cl[i], qs[i] = ids, ctx, start
+        where.append(len(tile_rows) * tq + p - start)
+        for k in range(-(-qlen // tq)):
+            tile_rows.append(i)
+            tile_offs.append(k * tq)
+    tile_rows.append(len(rows))           # a pad tile on the null row
+    tile_offs.append(0)
+    q = rng.standard_normal((len(tile_rows) * tq, h, d), np.float32)
+    q[where] = q[where[0]]
+    shape = (nblk + 1, bs, h, d)
+    case = {"q": q, "k_pool": rng.standard_normal(shape, np.float32),
+            "v_pool": rng.standard_normal(shape, np.float32),
+            "block_tables": bt, "context_lens": cl, "q_starts": qs,
+            "tile_rows": np.asarray(tile_rows, np.int32),
+            "tile_offs": np.asarray(tile_offs, np.int32)}
+    return case, where
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,long_start,long_len", [
+    (252, 201, 100),    # in split 0; the long chunk's tile reaches split 1
+    (767, 700, 100),    # the last position of split 2; the tile reaches 3
+])
+def test_ragged_output_depends_on_position_not_packing(p, long_start,
+                                                       long_len, dtype,
+                                                       mixed):
+    """A query's output bits depend on its position, its row's ctx and
+    K/V only: query p reached as a decode row, as the last query of a
+    short chunk and inside a long chunk (another ctx, another tile
+    offset, a tile that spans one more kv split, so its output goes
+    through the combine kernel where the decode row's is written
+    directly) gives equal bits, in one call and alone."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    case, where = _position_case(p, long_start, long_len, seed=p)
+    quant = {}
+    if mixed:
+        case, _, _ = int8_blocks(case, "odd", dt)
+        quant = {k: torch.from_numpy(case[k]).cuda() for k in QUANT_ARGS}
+    ts = [torch.from_numpy(case[k]).cuda() for k in RAGGED_ARGS]
+    ts = [t.to(dt) if t.is_floating_point() else t for t in ts]
+    out = paged.ragged_paged_attention(*ts, **quant)
+    for i in where[1:]:
+        assert torch.equal(out[i], out[where[0]])
+    # the decode row alone: another T and NT
+    alone = list(ts)
+    alone[0] = ts[0][:8].contiguous()
+    alone[6] = ts[6][:1].contiguous()
+    alone[7] = ts[7][:1].contiguous()
+    assert torch.equal(paged.ragged_paged_attention(*alone, **quant)[0],
+                       out[where[0]])
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_kernels_are_deterministic(dtype, mixed):
+    """Ten calls over chunks that span several kv splits give the same
+    bits: the splits are combined in a fixed order, with no atomics."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    if mixed:
+        ts, quant, _ = _mixed_operands("chunk_across_splits", dt)
+    else:
+        ts, quant = _operands("chunk_across_splits", dt), {}
+    first = paged.ragged_paged_attention(*ts, **quant)
+    for _ in range(9):
+        assert torch.equal(paged.ragged_paged_attention(*ts, **quant), first)
+
+
+def test_ragged_schedule_smem_is_the_library_count():
+    """The wrapper's pure-Python shared-memory count of a split-kernel
+    CTA (what it checks against the card's limit) is the kernel's own."""
+    _need_card()
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (8, 40, 64, 128, 136, 256):
+            for rows, bs in ((1, 16), (8, 16), (16, 4), (32, 1), (64, 8)):
+                assert (paged.ragged_schedule(dt, d, rows, bs).smem_bytes
+                        == paged.library_smem_bytes(dt, d, rows, bs))
 
 
 def test_ragged_kernel_rejects_what_it_cannot_take():
