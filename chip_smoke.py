@@ -26,7 +26,8 @@ user calls:
   is quantized while fillers run, and the second wave reads it in
   place — the mixed ragged kernel;
 - `split_path`: `CausalLM.prefill_chunk_paged` then
-  `decode_step_paged` — the paged-decode kernel.
+  `decode_step_paged` — the paged-decode kernel (the ragged kernels'
+  split and combine kernels over one decode tile a sequence).
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -63,7 +64,8 @@ from paddle_tpu_torch.ops import linear_cross_entropy
 from paddle_tpu_torch.optim import Adam
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, causal_lm_tree,
-                                      flash_case, int8_blocks, lm_stream,
+                                      decode_as_ragged, flash_case,
+                                      int8_blocks, lm_stream,
                                       pack_prompts, packed_segment_ids,
                                       paged_case, ragged_case,
                                       write_serving_export)
@@ -86,7 +88,7 @@ EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
 FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
 # the bf16 forward, dq and dk/dv kernels (entry points in FLASH_SRC)
 FLASH_TC_SRC = "paddle_tpu_torch/kernels/csrc/flash_tc.cuh"
-# kernels 1 and 2 (entry points in csrc/ragged_paged_attention.cu)
+# kernels 1, 2 and 3 (entry points in csrc/ragged_paged_attention.cu)
 RAGGED_TC_SRC = "paddle_tpu_torch/kernels/csrc/ragged_tc.cuh"
 SDPA_FWD = ("F.scaled_dot_product_attention(is_causal=True), forward, "
             "device time")
@@ -106,8 +108,7 @@ KERNEL_ROWS = {
         "no single PyTorch call reads int8 blocks through a bias-encoded "
         "table"),
     "paged_attention": (
-        "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-        "paddle_tpu/kernels/paged_attention.py:173",
+        RAGGED_TC_SRC, "paddle_tpu/kernels/paged_attention.py:173",
         "no single PyTorch call gathers K/V through block tables; "
         "scaled_dot_product_attention needs the K/V gathered dense first"),
     "flash_fwd": (FLASH_TC_SRC, "paddle_tpu/kernels/flash.py:202",
@@ -280,8 +281,9 @@ def phase_device(cuda: bool) -> dict:
 TENSOR_CORE_KERNELS = {"flash_fwd": "fwd_tc_kernel",
                        "flash_dq": "dq_tc_kernel",
                        "flash_dkv": "dkv_tc_kernel"}
-# the ragged kernels' split template (kernels 1 and 2, csrc/ragged_tc.cuh):
-# its bf16 instantiations must hold HMMA (mma.sync), and none may spill
+# the paged kernels' split template (kernels 1, 2 and 3,
+# csrc/ragged_tc.cuh): its bf16 instantiations must hold HMMA (mma.sync),
+# and none may spill
 RAGGED_SPLIT_KERNEL = "split_kernel"
 
 
@@ -369,10 +371,10 @@ def library_kernels(info) -> Tuple[Dict[str, dict], bool]:
 def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
     """Build every kernel from this checkout's sources (one nvcc per
     source, in parallel); report ptxas's registers/spills, the dynamic
-    shared memory a CTA takes at the paths' shapes, and for each ragged
+    shared memory a CTA takes at the paths' shapes, and for each paged
     and flash kernel instantiation its registers, spills and tensor-core
-    instructions in the SASS. Fails if a bf16 instantiation of kernel 1
-    or 2 has no HMMA or any of theirs spills, if a bf16 kernel 4, 5 or 6
+    instructions in the SASS. Fails if a bf16 split-kernel instantiation
+    (kernels 1-3) has no HMMA or any of them spills, if a bf16 kernel 4, 5 or 6
     instantiation has no HGMMA, or if a SIMT flash kernel is built for
     bf16. Returns, per kernel, whether its bf16 path runs on the tensor
     cores."""
@@ -392,9 +394,13 @@ def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
               str(dt).replace("torch.", ""): paged.shared_memory_bytes(
                   cfg["tile_q"], 1, d, bs, dtype=dt)
               for dt in (torch.float32, torch.bfloat16)},
-          "paged_attention_dynamic_smem_bytes_gqa":
-              paged.shared_memory_bytes(1, h // cfg["gqa_kv_heads"], d, bs,
-                                        "paged_attention"),
+          # the decode call: tile_q 1, G rows (MHA 1, GQA 8:2 4)
+          "paged_attention_dynamic_smem_bytes": {
+              str(dt).replace("torch.", ""): {
+                  f"groups_{g}": paged.shared_memory_bytes(
+                      1, g, d, bs, "paged_attention", dt)
+                  for g in (1, h // cfg["gqa_kv_heads"])}
+              for dt in (torch.float32, torch.bfloat16)},
           "flash_dynamic_smem_bytes": {
               str(dt).replace("torch.", ""): {
                   which: flash.shared_memory_bytes(which, d, dt)
@@ -413,9 +419,9 @@ def phase_build(cfg: dict, cuda: bool) -> Dict[str, bool]:
     emit({"phase": "build", "ragged_kernels": ragged,
           "cuobjdump": "found" if have_sass else
           "missing: no SASS instruction counts on this machine"})
-    tensor_cores = dict.fromkeys(
-        ("ragged_paged_attention", "ragged_paged_attention_mixed"),
-        have_sass)
+    tensor_cores = dict.fromkeys(("ragged_paged_attention",
+                                  "ragged_paged_attention_mixed",
+                                  "paged_attention"), have_sass)
     kernels, have_sass = library_kernels(infos["flash_attention"])
     for kernel, template in TENSOR_CORE_KERNELS.items():
         inst = {n: k for n, k in kernels.items() if template in n}
@@ -453,7 +459,9 @@ def phase_kernel_vs_plain(cfg: dict, device: torch.device) -> dict:
       position 96, one from off-stride 213, a whole prompt, pad tiles
       and the null row; the mixed table holds int8 ids at odd table
       positions and fp ids elsewhere;
-    - paged decode: contexts from 1 to 1200, ends off the block grid.
+    - paged decode: contexts from 1 to 1200, ends off the block grid;
+      on the card its output must also equal, bit for bit, kernel 1's on
+      the same rows packed as ragged decode rows (tile_q as the engine's).
     Returns the worst error per kernel."""
     bs, tq, d, h = cfg["block_size"], cfg["tile_q"], cfg["head_dim"], \
         cfg["num_heads"]
@@ -495,6 +503,16 @@ def phase_kernel_vs_plain(cfg: dict, device: torch.device) -> dict:
                     "paged_attention", got,
                     paged.paged_attention_reference(*_plain(pargs)), atol,
                     contexts=cfg["paged_check_lens"], **info))
+            one = paged.ragged_paged_attention(
+                *_to_device(decode_as_ragged(case, tq), dtype, device))[::tq]
+            sync()
+            equal = bool(torch.equal(got, one))
+            emit({"phase": "kernel_vs_plain", "kernel": "paged_attention",
+                  "against": "ragged_paged_attention on the same decode "
+                             "rows", "tile_q": tq, **info,
+                  "bit_equal": equal})
+            check(equal or device.type != "cuda",
+                  f"kernel 3 != kernel 1 on the same decode rows ({info})")
     return worst
 
 
@@ -565,7 +583,8 @@ def phase_kernel_time(cfg: dict, device: torch.device, card: dict) -> dict:
       kernel every other block before each row's query window is
       int8-resident (even table positions);
     - paged decode (f32 as the split_path phase, and bf16): 8 decode
-      rows at contexts 300-1200.
+      rows at contexts 300-1200 with tables of the LM's 128 blocks.
+    Each line gives the split and combine kernels' device time apart.
     Returns {kernel: timing in its path's dtype}."""
     cuda = device.type == "cuda"
     h, d, bs = cfg["num_heads"], cfg["head_dim"], cfg["block_size"]
@@ -581,10 +600,14 @@ def phase_kernel_time(cfg: dict, device: torch.device, card: dict) -> dict:
 
     def timed(name, launch, plain, cost, dtype, **info):
         dev = device_time(launch, cfg["time_iters"], cuda)
+        parts = {part: (sum(ms for n, ms in dev["kernel_ms"].items()
+                            if key in n) if cuda else None)
+                 for part, key in (("split_ms", "split_kernel"),
+                                   ("combine_ms", "combine_kernel"))}
         return _timed(name, launch, plain, cost, dtype, cfg, cuda, card,
                       device_ms=dev["device_ms"], clock=dev["clock"],
                       host_enqueue_ms=dev["host_enqueue_ms"],
-                      device_kernel_ms=dev["kernel_ms"], **info)
+                      device_kernel_ms=dev["kernel_ms"], **parts, **info)
 
     out = {}
     for dtype in (torch.bfloat16, torch.float32):

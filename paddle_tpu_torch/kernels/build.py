@@ -37,7 +37,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 # kernel name -> its source under csrc/
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
-    "paged_attention": "paged_attention.cu",
     "flash_attention": "flash_attention.cu",
 }
 

@@ -1,7 +1,7 @@
 // Element types of the port's CUDA kernels (f32 and bf16): 16-byte loads
 // into f32, and the rounding points the TPU kernels have. Shared by the
-// paged-attention family (paged_common.cuh) and the flash-attention
-// family (flash_common.cuh).
+// paged-attention family (ragged_tc.cuh) and the flash-attention family
+// (flash_common.cuh).
 
 #pragma once
 

@@ -1,7 +1,8 @@
-// Ragged paged attention for NVIDIA Hopper (sm_90a): ONE call serves a
-// serve step's mixed batch of decode rows and prefill chunks.
+// Paged attention for NVIDIA Hopper (sm_90a): ONE ragged call serves a
+// serve step's mixed batch of decode rows and prefill chunks, and one
+// decode call serves the split path's decode step.
 //
-// Two entry points over one kernel template (ragged_tc.cuh), instantiated
+// Three entry points over one kernel template (ragged_tc.cuh), instantiated
 // for each tier:
 // - ptt_ragged_paged_attention replaces the TPU kernel `_ragged_kernel`
 //   in paddle_tpu/kernels/paged_attention.py:428 (launched by
@@ -13,7 +14,10 @@
 //   An int8 block is dequantized while it is staged into shared memory
 //   and then goes through the same code as an fp block, so a direct read
 //   is bit-equal to the fp entry point over pools into which those blocks
-//   were promoted with dequantize_block.
+//   were promoted with dequantize_block;
+// - ptt_paged_attention replaces `_paged_kernel` (:173, launched by
+//   `_paged_kernel_call`, :230): single-token decode through the fp
+//   instantiations over ragged_tc.cuh's decode packing (below).
 // Contract (the same as the TPU kernels'):
 //   q            [T, H, D]          flat-packed queries, T = NT * tile_q
 //   k/v_pool     [NB, BS, Hkv, D]   block pools (f32 or bf16, q's dtype)
@@ -31,6 +35,20 @@
 // iff p <= q_pos and p < ctx. Pad tiles point at a null row (ctx 1, all
 // table entries scratch block 0), so every softmax row has kv position 0
 // visible and is never empty.
+//
+// The decode contract (the same as `_paged_kernel`'s):
+//   q            [B, H, D]          one query token per sequence
+//   k/v_pool     [NB, BS, Hkv, D]   block pools (f32 or bf16, q's dtype)
+//   block_tables [B, MB] int32      per-sequence pool block ids
+//   context_lens [B] int32          tokens visible to the row (this one
+//                                   included); 0 gives a row of zeros
+//   out          [B, H, D]          q's dtype
+//   ws           [B, Hkv, num_splits, H / Hkv, D + 2] f32, as above
+// Sequence b is decode tile b: tile_q 1, its G = H / Hkv query heads of a
+// kv head as the tile's rows, its query at position context_lens[b] - 1.
+// The ragged mask is then the decode mask p < ctx, over the same kv
+// schedule as kernel 1, so a decode row's bits are kernel 1's for the
+// same row packed as a ragged decode row.
 //
 // The kv schedule — C positions an iteration (`chunk`), S a split
 // (`split`) — comes from the wrapper (paged_attention.ragged_schedule),
@@ -175,6 +193,23 @@ int ptt_ragged_paged_attention_mixed(
   p.k_scales = k_scales;
   p.v_scales = v_scales;
   return dispatch<true>(p, dtype, stream);
+}
+
+// Kernel 3: single-token decode over the decode packing (q_starts,
+// tile_rows and tile_offs absent), through kernel 1's instantiations.
+// The workspace and the schedule come from the wrapper, as for the
+// ragged entry points.
+int ptt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
+                        const int* block_tables, const int* context_lens,
+                        void* out, void* ws, int batch, int num_heads,
+                        int num_kv_heads, int head_dim, int block_size,
+                        int max_blocks, int chunk, int split, float scale,
+                        int dtype, void* stream) {
+  const Params p = make_params(
+      q, k_pool, v_pool, block_tables, context_lens, nullptr, nullptr,
+      nullptr, out, static_cast<float*>(ws), batch, 1, num_heads,
+      num_kv_heads, head_dim, block_size, max_blocks, chunk, split, scale);
+  return dispatch<false>(p, dtype, stream);
 }
 
 const char* ptt_cuda_error_string(int err) {

@@ -2,8 +2,18 @@
 // positions, a K/V ring filled by cp.async (two stages in bf16, one in
 // f32), bf16 products on the tensor cores (mma.sync m16n8k16) and f32
 // products register-tiled on the CUDA cores. Used by
-// ragged_paged_attention.cu (kernels 1 and 2); the decode tile of the
-// paged-decode kernel is the same computation.
+// ragged_paged_attention.cu for all three paged kernels: the ragged fp
+// and mixed kernels (1 and 2) and the single-token decode kernel (3).
+//
+// Two packings of the query tiles (tile_origin):
+// - ragged (q_starts given): tile t is tile_q queries of row
+//   tile_rows[t], the first at position q_starts[row] + tile_offs[t];
+// - decode (q_starts == nullptr): tile t is sequence t, tile_q is 1, and
+//   its one query sits at position context_lens[t] - 1. Its rows are the
+//   G query heads of a kv head, and it reads the blocks j * BS < ctx (up
+//   to the table's MB), the Pallas decode kernel's set
+//   (paged_attention.py:190). A sequence at ctx 0 reads no block and
+//   gets that kernel's acc / max(l, 1e-30) = 0.
 //
 // Two kernels a call:
 // - split_kernel, grid (query tile x row group x split, kv head): the CTA
@@ -20,22 +30,23 @@
 // - combine_kernel, grid (query tile, kv head): merges the partials of a
 //   tile's splits in ascending order and writes the output.
 //
-// What stays exactly as the Pallas kernel (paddle_tpu/kernels/
-// paged_attention.py _ragged_tile_update :387, _ragged_kernel :428,
-// _ragged_kernel_mixed :462) has it:
+// What stays exactly as the Pallas kernels (paddle_tpu/kernels/
+// paged_attention.py _paged_kernel :173, _ragged_tile_update :387,
+// _ragged_kernel :428, _ragged_kernel_mixed :462) have it:
 // 1. Numerics: f32 scores; the mask is a SELECT to -1e9; an f32 online
 //    softmax with expf (never __expf); p rounded to the pool dtype before
 //    P.V while l sums the unrounded p; the output acc / max(l, 1e-30) in
 //    q's dtype. No fast-math flags.
 // 2. Which blocks are read: exactly the Pallas kernel's, j*BS < ctx and
-//    j*BS <= q0 + tile_q - 1, whole. A read block's lanes past ctx keep
-//    the pool's bytes (a stale NaN there poisons the row, as on the TPU);
-//    the lanes of a chunk past the last block read are zero-filled in
-//    shared memory. One CTA serves one query tile, so each tile reads its
-//    own block set and no other.
+//    j*BS <= q0 + tile_q - 1 and j < MB, whole. A read block's lanes past
+//    ctx keep the pool's bytes (a stale NaN there poisons the row, as on
+//    the TPU); the lanes of a chunk past the last block read are
+//    zero-filled in shared memory and masked. One CTA serves one query
+//    tile, so each tile reads its own block set and no other.
 // 3. Position invariance: a query's output bits depend only on its
 //    absolute position, its row's ctx and its row's K/V; not on its tile
-//    offset, its chunk's length, its neighbours, T or NT. The kv grid (C
+//    offset, its chunk's length, its neighbours, T, NT or the packing (a
+//    decode tile gives a ragged decode row's bits). The kv grid (C
 //    positions a chunk, S a split, 16 lanes a warp) is anchored at
 //    position 0 of every row and depends on the dtype and D only. Position
 //    0 is visible to every query, so a warp, a split and the whole walk
@@ -70,10 +81,30 @@
 
 #pragma once
 
+#include "dtype.cuh"
 #include "hopper.cuh"
-#include "paged_common.cuh"
 
 namespace ptt {
+
+constexpr float kNegInf = -1e9f;
+constexpr float kLFloor = 1e-30f;
+// f32(1/127) rounded once, as RQMAX in quant/int8_compute.py: dequant is
+// (int8 -> f32) * (scale * kRqmax), never a division by 127
+constexpr float kRqmax = 0x1.020408p-7f;
+
+// N int8 values (one load of 4 or 8 bytes) as exact floats
+template <int N>
+__device__ __forceinline__ void load_int8(const int8_t* src, float* dst) {
+#pragma unroll
+  for (int h = 0; h < N; h += 4) {
+    const char4 v = *reinterpret_cast<const char4*>(src + h);
+    dst[h] = __int2float_rn(v.x);
+    dst[h + 1] = __int2float_rn(v.y);
+    dst[h + 2] = __int2float_rn(v.z);
+    dst[h + 3] = __int2float_rn(v.w);
+  }
+}
+
 namespace rtc {
 
 constexpr int kLanes = 16;  // kv positions a warp takes of each chunk
@@ -126,7 +157,7 @@ struct Params {
   const float* v_scales;
   const int* block_tables;
   const int* context_lens;
-  const int* q_starts;
+  const int* q_starts;   // nullptr: the decode packing (tile_origin)
   const int* tile_rows;
   const int* tile_offs;
   void* out;
@@ -140,14 +171,40 @@ struct Params {
   float scale;
 };
 
+// Where a query tile comes from: its metadata row, the position of its
+// first query and its row's context. Both kernels read a tile's origin
+// here, so they cannot disagree on it. Only the fp instantiations serve
+// the decode packing (kDecode); in the mixed one the branch compiles away.
+struct TileOrigin {
+  int row, q0, ctx;
+};
+template <bool kDecode>
+__device__ __forceinline__ TileOrigin tile_origin(const Params& p,
+                                                  int tile) {
+  if (kDecode && p.q_starts == nullptr) {  // tile t is sequence t
+    const int ctx = p.context_lens[tile];
+    return {tile, ctx - 1, ctx};
+  }
+  const int row = p.tile_rows[tile];
+  return {row, p.q_starts[row] + p.tile_offs[tile], p.context_lens[row]};
+}
+
 // blocks a tile reads: those before its row's context and not wholly in
-// the causal future of its last query (paged_attention.py:449)
+// the causal future of its last query (paged_attention.py:449), and no
+// more than its table holds (a decode row at ctx 0 reads none)
 __device__ __forceinline__ int blocks_read(const Params& p, int ctx,
                                            int q0) {
   int n = (ctx + p.block_size - 1) / p.block_size;
   const int causal_end = (q0 + p.tile_q - 1) / p.block_size + 1;
   if (causal_end < n) n = causal_end;
   return n < p.max_blocks ? n : p.max_blocks;
+}
+
+// offset in q and out [T, H, D] of row r (= i * G + g) of a query tile
+__device__ __forceinline__ size_t row_offset(const Params& p, int tile,
+                                             int r, int kvh, int G) {
+  return ((size_t)(tile * p.tile_q + r / G) * p.num_heads + kvh * G +
+          r % G) * p.head_dim;
 }
 
 // -- device building blocks -------------------------------------------------
@@ -242,13 +299,16 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(const Params p) {
   const int kvh = blockIdx.y;
   const int pos0 = split * p.split;
 
-  const int row = p.tile_rows[tile];
-  const int q0 = p.q_starts[row] + p.tile_offs[tile];
-  const int ctx = p.context_lens[row];
-  const int* table = p.block_tables + (size_t)row * p.max_blocks;
+  const TileOrigin o = tile_origin<!kMixed>(p, tile);
+  const int q0 = o.q0;
+  const int ctx = o.ctx;
+  const int* table = p.block_tables + (size_t)o.row * p.max_blocks;
   const int nblk = blocks_read(p, ctx, q0);
   const int end = nblk * BS;  // positions from here on are zero-filled
-  if (pos0 >= end) return;
+  // split 0 always runs: a tile that reads no block (a decode row at ctx
+  // 0; a ragged tile always reads position 0) walks no chunk and writes
+  // acc / max(l, 1e-30) = 0, the Pallas decode kernel's output
+  if (pos0 >= max(end, 1)) return;
   const int nsplit = (end + p.split - 1) / p.split;
   const int span = (end - pos0 < p.split ? end - pos0 : p.split);
   const int nchunk = (span + p.chunk - 1) / p.chunk;
@@ -275,10 +335,8 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(const Params p) {
     const int r = r0 + lr;
     T* dst = sq + lr * P + c;
     if (r < R) {
-      const size_t off = ((size_t)(tile * p.tile_q + r / G) * p.num_heads +
-                          kvh * G + r % G) * D + c;
-      *reinterpret_cast<uint4*>(dst) =
-          *reinterpret_cast<const uint4*>(q + off);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(
+          q + row_offset(p, tile, r, kvh, G) + c);
     } else {
       zero16(dst);
     }
@@ -366,13 +424,15 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(const Params p) {
   const int lane0 = warp * kLanes;  // this warp's lanes of every chunk
   // rows g and (bf16) g + 8 of this CTA; `upper`: whether rows 8-15 of a
   // bf16 tile hold a query row (if not, their p is 0). A row sees kv
-  // position kpos iff kpos <= lim (its position, and below ctx).
+  // position kpos iff kpos <= lim: its position, below ctx, and below
+  // `end` (a context past the table's last block sees the table's
+  // positions, not the zero-filled lanes after them)
   const bool upper = kR == 2 && r0 + 8 < R;
   int lim[kR];
 #pragma unroll
   for (int rr = 0; rr < kR; ++rr) {
     const int qpos = q0 + (r0 + g + 8 * rr) / G;
-    lim[rr] = qpos < ctx - 1 ? qpos : ctx - 1;
+    lim[rr] = min(qpos, min(ctx, end) - 1);
   }
   float m[kR];
   float l[kR];
@@ -576,11 +636,10 @@ __global__ void __launch_bounds__(kMaxThreads) split_kernel(const Params p) {
   // a warp a row, its lanes along the head dim; a tile whose positions
   // all lie in split 0 writes its output, any other the split's partial
   T* out = static_cast<T*>(p.out);
-  const bool direct = nsplit == 1;
+  const bool direct = nsplit <= 1;
   for (int lr = warp; lr < rows_here; lr += blockDim.x / 32) {
     const int r = r0 + lr;
-    const size_t orow = ((size_t)(tile * p.tile_q + r / G) * p.num_heads +
-                         kvh * G + r % G) * D;
+    const size_t orow = row_offset(p, tile, r, kvh, G);
     float* wsr = direct ? nullptr
                         : p.ws + ((((size_t)tile * p.num_kv_heads + kvh) *
                                        p.num_splits + split) * R + r) *
@@ -616,9 +675,8 @@ __global__ void __launch_bounds__(kCombineThreads)
     combine_kernel(const Params p) {
   const int tile = blockIdx.x;
   const int kvh = blockIdx.y;
-  const int row = p.tile_rows[tile];
-  const int q0 = p.q_starts[row] + p.tile_offs[tile];
-  const int end = blocks_read(p, p.context_lens[row], q0) * p.block_size;
+  const TileOrigin o = tile_origin<true>(p, tile);
+  const int end = blocks_read(p, o.ctx, o.q0) * p.block_size;
   const int nsplit = (end + p.split - 1) / p.split;
   if (nsplit <= 1) return;
   const int D = p.head_dim;
@@ -646,9 +704,8 @@ __global__ void __launch_bounds__(kCombineThreads)
       sl = sl * old + ws_s[D + 1] * wt;
       mx = m_new;
     }
-    const size_t off = ((size_t)(tile * p.tile_q + r / G) * p.num_heads +
-                        kvh * G + r % G) * D + d;
-    out[off] = Traits<T>::store(a / fmaxf(sl, kLFloor));
+    out[row_offset(p, tile, r, kvh, G) + d] =
+        Traits<T>::store(a / fmaxf(sl, kLFloor));
   }
 }
 

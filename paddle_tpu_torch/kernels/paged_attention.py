@@ -41,14 +41,18 @@ Each kernel has two implementations with one contract:
   `reference_attention`. The tests use it, and the wrappers run it for
   tensors that lie on the CPU.
 - a hand-written CUDA kernel under kernels/csrc/. For CUDA tensors the
-  wrapper launches it or raises; it never falls back:
-  - `ragged_paged_attention.cu` `ptt_ragged_paged_attention` replaces
-    `_ragged_kernel` (paddle_tpu/kernels/paged_attention.py:428), and
+  wrapper launches it or raises; it never falls back. All three are
+  entry points of `ragged_paged_attention.cu` over one kernel pair
+  (`ragged_tc.cuh`): a split kernel over fixed-position kv splits and,
+  where a tile spans more than one split, a kernel that combines the
+  splits in order (`ragged_plan` sizes both):
+  - `ptt_ragged_paged_attention` replaces `_ragged_kernel`
+    (paddle_tpu/kernels/paged_attention.py:428), and
     `ptt_ragged_paged_attention_mixed` replaces `_ragged_kernel_mixed`
-    (:462); each call runs a split kernel over fixed-position kv splits
-    and, where a tile spans more than one split, a kernel that combines
-    the splits in order (`ragged_schedule` sizes both);
-  - `paged_attention.cu` replaces `_paged_kernel` (:173).
+    (:462);
+  - `ptt_paged_attention` replaces `_paged_kernel` (:173): each sequence
+    is one decode tile (tile_q 1, its query heads of a kv head as the
+    tile's rows), through kernel 1's instantiations and kv schedule.
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ from paddle_tpu_torch.kernels.attention import reference_attention
 from paddle_tpu_torch.quant.int8_compute import RQMAX
 
 _KERNEL = "ragged_paged_attention"
-_PAGED_KERNEL = "paged_attention"
+_KERNELS = (_KERNEL, "paged_attention")   # both run the ragged kernel pair
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM_BYTES = 232448          # one CTA's dynamic shared memory on H100
 
@@ -146,6 +150,29 @@ def ragged_workspace_shape(num_tiles: int, num_kv_heads: int, splits: int,
     """The f32 partials of a call: per (tile, kv head, split, query row)
     acc [D], then m and l."""
     return (num_tiles, num_kv_heads, splits, rows, head_dim + 2)
+
+
+class RaggedPlan(NamedTuple):
+    """One call of the kernel pair: its schedule, the splits of its
+    table, and the shape of its f32 partials (None with one split, where
+    every tile writes its output)."""
+    schedule: RaggedSchedule
+    splits: int
+    workspace: Optional[Tuple[int, ...]]
+
+
+def ragged_plan(dtype: torch.dtype, num_tiles: int, tile_q: int,
+                num_heads: int, num_kv_heads: int, head_dim: int,
+                block_size: int, max_blocks: int) -> RaggedPlan:
+    """The plan of a call over `num_tiles` tiles of tile_q queries (a
+    decode call: one tile a sequence, tile_q 1) with tables of
+    max_blocks blocks; pure Python, what the wrappers launch from."""
+    rows = tile_q * (num_heads // num_kv_heads)
+    sched = ragged_schedule(dtype, head_dim, rows, block_size)
+    splits = ragged_num_splits(max_blocks, block_size, sched.split)
+    return RaggedPlan(sched, splits, ragged_workspace_shape(
+        num_tiles, num_kv_heads, splits, rows, head_dim)
+        if splits > 1 else None)
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables,
@@ -307,45 +334,37 @@ def _check_block_ids(block_tables, num_blocks: int, num_q: int = 0) -> None:
 _TYPED: set = set()       # libraries whose entry points carry argtypes
 
 
-def _library(name: str = _KERNEL) -> ctypes.CDLL:
-    """The built library of kernel `name`, its entry points typed."""
-    lib = build.load(name)
-    if name not in _TYPED:
+def _library() -> ctypes.CDLL:
+    """The built library of the paged kernels, its entry points typed."""
+    lib = build.load(_KERNEL)
+    if _KERNEL not in _TYPED:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == _KERNEL:
-            entry = {"ptt_ragged_paged_attention": [p] * 10,
-                     "ptt_ragged_paged_attention_mixed": [p] * 14}
-            tail = [i] * 9 + [f, i, p]
-            smem = lib.ptt_ragged_paged_attention_smem_bytes
-        else:
-            entry = {"ptt_paged_attention": [p] * 6}
-            tail = [i] * 6 + [f, i, p]
-            smem = lib.ptt_paged_attention_smem_bytes
-        for fn_name, ptrs in entry.items():
+        for fn_name, args in (
+                ("ptt_ragged_paged_attention", [p] * 10 + [i] * 9),
+                ("ptt_ragged_paged_attention_mixed", [p] * 14 + [i] * 9),
+                ("ptt_paged_attention", [p] * 7 + [i] * 8)):
             fn = getattr(lib, fn_name)
-            fn.argtypes = ptrs + tail
+            fn.argtypes = args + [f, i, p]
             fn.restype = ctypes.c_int
-        smem.argtypes = [i] * (5 if name == _KERNEL else 4)
-        smem.restype = ctypes.c_size_t
+        lib.ptt_ragged_paged_attention_smem_bytes.argtypes = [i] * 5
+        lib.ptt_ragged_paged_attention_smem_bytes.restype = ctypes.c_size_t
         lib.ptt_cuda_error_string.argtypes = [i]
         lib.ptt_cuda_error_string.restype = ctypes.c_char_p
-        _TYPED.add(name)
+        _TYPED.add(_KERNEL)
     return lib
 
 
 def shared_memory_bytes(tile_q: int, groups: int, head_dim: int,
                         block_size: int, kernel: str = _KERNEL,
                         dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory one CTA of `kernel` takes, so a caller can
-    report it beside ptxas's registers: the ragged split kernel's from
-    its schedule (in `dtype`), the paged-decode kernel's (one query per
-    head, tile_q 1) from the library's own count."""
-    if kernel == _KERNEL:
-        return ragged_schedule(dtype, head_dim, tile_q * groups,
-                               block_size).smem_bytes
-    lib = _library(kernel)
-    return int(lib.ptt_paged_attention_smem_bytes(tile_q, groups, head_dim,
-                                                  block_size))
+    """Dynamic shared memory one split-kernel CTA of `kernel` (the ragged
+    call, or the paged-decode call with tile_q 1) takes in `dtype`, so a
+    caller can report it beside ptxas's registers; from the schedule, in
+    pure Python."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"no kernel {kernel!r}; one of {_KERNELS}")
+    return ragged_schedule(dtype, head_dim, tile_q * groups,
+                           block_size).smem_bytes
 
 
 def library_smem_bytes(dtype: torch.dtype, head_dim: int, rows: int,
@@ -399,46 +418,44 @@ def _check_smem(smem: int, what: str) -> None:
                          f"over the card's {_MAX_SMEM_BYTES}")
 
 
-def _launch(q, k_pool, v_pool, block_tables, context_lens, q_starts,
-            tile_rows, tile_offs, scale: float,
+def _launch(q, k_pool, v_pool, ints, num_tiles: int, scale: float,
             quant=()) -> torch.Tensor:
-    """Kernel 1 (fp pools) or, with `quant` = (kq, vq, k_scales,
-    v_scales), kernel 2 (bias-encoded tables over fp + int8 pools)."""
+    """One call of the kernel pair: kernel 1 (fp pools; `ints` the five
+    ragged metadata arrays), kernel 2 (the same with `quant` = (kq, vq,
+    k_scales, v_scales): bias-encoded tables over fp + int8 pools), or
+    kernel 3 (`ints` = (block_tables, context_lens): the decode packing,
+    one tile a sequence)."""
+    decode = len(ints) == 2
+    name = "paged_attention" if decode else "ragged_paged_attention"
     t, h, d = q.shape
     nb, bs, hkv, _ = k_pool.shape
-    nt = tile_rows.shape[0]
-    tq = t // nt
-    ints = (block_tables, context_lens, q_starts, tile_rows, tile_offs)
-    _check_launch("ragged_paged_attention", q, (q, k_pool, v_pool), ints,
-                  quant)
-    lib = _library()
-    rows = tq * (h // hkv)
-    sched = ragged_schedule(q.dtype, d, rows, bs)
+    tq = t // num_tiles
+    _check_launch(name, q, (q, k_pool, v_pool), ints, quant)
+    mb = ints[0].shape[1]
+    plan = ragged_plan(q.dtype, num_tiles, tq, h, hkv, d, bs, mb)
+    sched = plan.schedule
     _check_smem(sched.smem_bytes, f"tile_q={tq} x groups={h // hkv} x "
                                   f"head_dim={d} in {q.dtype}")
-    mb = block_tables.shape[1]
-    splits = ragged_num_splits(mb, bs, sched.split)
+    lib = _library()
     out = torch.empty_like(q)
     # the splits' partials; with one split every tile writes its output
-    ws = (torch.empty(ragged_workspace_shape(nt, hkv, splits, rows, d),
-                      dtype=torch.float32, device=q.device)
-          if splits > 1 else None)
-    tail = (out.data_ptr(), None if ws is None else ws.data_ptr(), nt, tq,
-            h, hkv, d, bs, mb, sched.chunk, sched.split, float(scale),
-            _DTYPE_CODES[q.dtype])
+    ws = (None if plan.workspace is None else
+          torch.empty(plan.workspace, dtype=torch.float32, device=q.device))
+    shape = (num_tiles,) + (() if decode else (tq,)) + (
+        h, hkv, d, bs, mb, sched.chunk, sched.split, float(scale),
+        _DTYPE_CODES[q.dtype])
+    fn = (lib.ptt_paged_attention if decode
+          else lib.ptt_ragged_paged_attention_mixed if quant
+          else lib.ptt_ragged_paged_attention)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if quant:
-            rc = lib.ptt_ragged_paged_attention_mixed(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                *[x.data_ptr() for x in quant],
-                *[x.data_ptr() for x in ints], *tail, stream)
-        else:
-            rc = lib.ptt_ragged_paged_attention(
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                *[x.data_ptr() for x in ints], *tail, stream)
-    _raise_on(lib, rc, "ragged_paged_attention")
-    if quant:
+        rc = fn(*[x.data_ptr() for x in (q, k_pool, v_pool, *quant, *ints,
+                                         out)],
+                None if ws is None else ws.data_ptr(), *shape, stream)
+    _raise_on(lib, rc, name)
+    if decode:
+        paged_attention.launches += 1
+    elif quant:
         ragged_paged_attention.mixed_launches += 1
     else:
         ragged_paged_attention.launches += 1
@@ -480,8 +497,9 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
             v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_paged_attention for device {q.device}")
-    return _launch(q, k_pool, v_pool, block_tables, context_lens, q_starts,
-                   tile_rows, tile_offs, scale, quant)
+    return _launch(q, k_pool, v_pool, (block_tables, context_lens, q_starts,
+                                       tile_rows, tile_offs),
+                   tile_rows.shape[0], scale, quant)
 
 
 # kernel launches since the last reset (set to 0 to reset): `launches`
@@ -501,7 +519,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     q: [B, H, D]; pools [NB, BS, Hkv, D]; block_tables [B, MB] int32;
     context_lens [B] int32 (tokens visible to each row, this one
     included). Returns [B, H, D]. Dispatch by device as
-    `ragged_paged_attention`."""
+    `ragged_paged_attention`. On the card a row at context 0 gives zeros
+    (the Pallas kernel's acc / max(l, 1e-30)), and a context past the
+    table's MB * BS positions sees those positions; the plain version
+    gives what JAX's reference gives."""
     if (q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape
             or k_pool.shape[3] != q.shape[2]):
         raise ValueError(
@@ -523,23 +544,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                                          context_lens, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_attention for device {q.device}")
-    ints = (block_tables, context_lens)
-    _check_launch("paged_attention", q, (q, k_pool, v_pool), ints)
-    lib = _library(_PAGED_KERNEL)
-    _check_smem(shared_memory_bytes(1, h // hkv, d, bs, _PAGED_KERNEL),
-                f"groups={h // hkv} x head_dim={d} with block_size={bs}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ptt_paged_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            b, h, hkv, d, bs, block_tables.shape[1], float(scale),
-            _DTYPE_CODES[q.dtype], stream)
-    _raise_on(lib, rc, "paged_attention")
-    paged_attention.launches += 1
-    return out
+    return _launch(q, k_pool, v_pool, (block_tables, context_lens), b, scale)
 
 
-# kernel-3 launches since the last reset (set to 0 to reset)
+# kernel-3 launches since the last reset (set to 0 to reset): one a call
+# although a call runs the split kernel and, with more than one split,
+# the combine kernel; the plain version on CPU tensors does not count
 paged_attention.launches = 0

@@ -149,6 +149,26 @@ def paged_case(context_lens: Sequence[int], h: int, hkv: int, d: int,
     }
 
 
+def decode_as_ragged(case: Dict[str, np.ndarray],
+                     tile_q: int) -> Dict[str, np.ndarray]:
+    """A paged_case's decode rows as ragged decode rows (keys in
+    RAGGED_ARGS order): one tile of tile_q queries a sequence, its query
+    in the tile's first slot at position ctx - 1 (the other slots are
+    slack, zeros), the same pools, tables and contexts. Row b's output is
+    flat row b * tile_q of the ragged call. Every context must be >= 1."""
+    q, cl = case["q"], case["context_lens"]
+    if (cl < 1).any():
+        raise ValueError("a ragged row needs a context of at least 1")
+    b = q.shape[0]
+    flat = np.zeros((b * tile_q,) + q.shape[1:], q.dtype)
+    flat[::tile_q] = q
+    return {"q": flat, "k_pool": case["k_pool"], "v_pool": case["v_pool"],
+            "block_tables": case["block_tables"], "context_lens": cl,
+            "q_starts": (cl - 1).astype(np.int32),
+            "tile_rows": np.arange(b, dtype=np.int32),
+            "tile_offs": np.zeros((b,), np.int32)}
+
+
 def causal_lm_tree(seed: int, vocab: int, model_dim: int, num_heads: int,
                    num_layers: int, ffn_dim: int,
                    num_kv_heads: Optional[int] = None,

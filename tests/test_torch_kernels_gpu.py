@@ -25,8 +25,8 @@ from paddle_tpu_torch.testing import (FLASH_ARGS, OOV_DIMS, OOV_ENGINE,
                                       OOV_KERNEL_STREAMS, OOV_NEW_TOKENS,
                                       OOV_PROMPTS, OOV_VOCAB, PAGED_ARGS,
                                       QUANT_ARGS, RAGGED_ARGS,
-                                      causal_lm_tree, flash_case,
-                                      int8_blocks, lm_stream,
+                                      causal_lm_tree, decode_as_ragged,
+                                      flash_case, int8_blocks, lm_stream,
                                       packed_segment_ids, paged_case,
                                       ragged_case)
 
@@ -159,6 +159,26 @@ PAGED_CASES = {
     "engine_shape_gqa": ([33, 450, 1199], 8, 2, 64, 16),
     "d256": ([70, 33, 1], 2, 1, 256, 16),
 }
+# decode contexts around the kv split S = 256 (S - 1, S, S + 1,
+# 2S + BS - 1) and at the LM's max_len 2048, MHA and GQA 8:2
+PAGED_CASES.update({
+    f"split_edges_d{d}{'_gqa' if hkv == 2 else ''}":
+        ([255, 256, 257, 527, 2048], 8, hkv, d, 16)
+    for d in (64, 128, 256) for hkv in (8, 2)})
+
+
+def _paged_operands(name, dtype, seed=1, case=None):
+    """(numpy case, its operands on the card in `dtype`)."""
+    if case is None:
+        lens, h, hkv, d, bs = PAGED_CASES[name]
+        case = paged_case(lens, h, hkv, d, bs, seed=seed)
+    ts = [torch.from_numpy(case[k]).cuda() for k in PAGED_ARGS]
+    return case, [t.to(dtype) if t.is_floating_point() else t for t in ts]
+
+
+def _paged_plain(ts):
+    return paged.paged_attention_reference(
+        *[t.float() if t.is_floating_point() else t for t in ts])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -166,19 +186,96 @@ PAGED_CASES = {
 def test_paged_kernel_matches_plain(name, dtype):
     _need_card()
     dt = getattr(torch, dtype)
-    lens, h, hkv, d, bs = PAGED_CASES[name]
-    case = paged_case(lens, h, hkv, d, bs, seed=1)
-    ts = [torch.from_numpy(case[k]).cuda() for k in PAGED_ARGS]
-    ts = [t.to(dt) if t.is_floating_point() else t for t in ts]
+    _, ts = _paged_operands(name, dt)
     before = paged.paged_attention.launches
     got = paged.paged_attention(*ts, check_block_ids=True)
     torch.cuda.synchronize()
     assert paged.paged_attention.launches == before + 1
     assert got.dtype == dt and got.shape == ts[0].shape
-    want = paged.paged_attention_reference(
-        *[t.float() if t.is_floating_point() else t for t in ts])
     atol = 1e-4 if dt == torch.float32 else 2e-2
-    assert float((got.float() - want).abs().max()) <= atol
+    assert float((got.float() - _paged_plain(ts)).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("tile_q", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["engine_shape", "engine_shape_gqa", "d256",
+                                  "split_edges_d64", "split_edges_d128_gqa"])
+def test_paged_kernel_is_kernel_1_on_decode_rows(name, dtype, tile_q):
+    """Kernel 3 is kernel 1 over the decode packing: its output equals,
+    bit for bit, kernel 1's for the same rows packed as ragged decode
+    rows, one to a tile of tile_q 1 or 8 (the engine's)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    case, ts = _paged_operands(name, dt, seed=4)
+    rcase = decode_as_ragged(case, tile_q)
+    rts = [torch.from_numpy(rcase[k]).cuda() for k in RAGGED_ARGS]
+    rts = [t.to(dt) if t.is_floating_point() else t for t in rts]
+    got = paged.paged_attention(*ts)
+    assert torch.equal(got, paged.ragged_paged_attention(*rts)[::tile_q])
+
+
+@pytest.mark.parametrize("max_blocks", [4, 64])        # one split; four
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_gives_zeros_at_context_0(dtype, max_blocks):
+    """A row at context 0 reads no block (its table points at a block of
+    NaNs) and gets exact zeros, as the Pallas kernel's acc / max(l,
+    1e-30); the output's memory held NaNs before the call. The rows
+    beside it match plain over the pools without the NaNs (the plain
+    version gathers every table entry, and 0 * NaN poisons its P.V)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    clean = paged_case([0, 37, 0, 60], 8, 2, 64, 16, max_blocks=max_blocks,
+                       seed=5)
+    case = dict(clean, k_pool=clean["k_pool"].copy(),
+                v_pool=clean["v_pool"].copy())
+    case["k_pool"][0] = case["v_pool"][0] = np.nan    # scratch block 0
+    _, ts = _paged_operands(None, dt, case=case)
+    # freed at once, so the allocator hands its block to the output
+    torch.full_like(ts[0], float("nan"))
+    got = paged.paged_attention(*ts)
+    torch.cuda.synchronize()
+    assert torch.equal(got[[0, 2]], torch.zeros_like(got[[0, 2]]))
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    want = _paged_plain(_paged_operands(None, dt, case=clean)[1])
+    assert float((got[[1, 3]].float() - want[[1, 3]]).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("max_blocks", [8, 17])        # one split; two
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_past_its_table_matches_plain(dtype, max_blocks):
+    """Contexts past the table's MB * BS positions see those positions
+    (the Pallas grid stops at MB), beside a row inside the table."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    case = paged_case([40, 300, 517], 8, 2, 64, 16, seed=6)
+    case["block_tables"] = np.ascontiguousarray(
+        case["block_tables"][:, :max_blocks])
+    _, ts = _paged_operands(None, dt, case=case)
+    got = paged.paged_attention(*ts, check_block_ids=True)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    assert float((got.float() - _paged_plain(ts)).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_is_deterministic(dtype):
+    """Ten calls over rows that span up to 8 kv splits give equal bits."""
+    _need_card()
+    _, ts = _paged_operands("split_edges_d64_gqa", getattr(torch, dtype))
+    first = paged.paged_attention(*ts)
+    for _ in range(9):
+        assert torch.equal(paged.paged_attention(*ts), first)
+
+
+def test_paged_kernel_smem_is_the_library_count():
+    """The decode call's shared memory (tile_q 1, G rows), as the wrapper
+    counts it, is the library's count for the ragged split kernel."""
+    _need_card()
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (8, 64, 128, 256):
+            for g in (1, 2, 4, 8):
+                assert (paged.shared_memory_bytes(1, g, d, 16,
+                                                  "paged_attention", dt)
+                        == paged.library_smem_bytes(dt, d, g, 16))
 
 
 def test_paged_kernel_rows_are_independent():

@@ -75,6 +75,49 @@ def test_paged_decode_scale_and_checks():
         paged.paged_attention(ts[0][:, :3].contiguous(), *ts[1:])
 
 
+def _edge_case(edge):
+    """Decode rows at the contract's edges (H 4 over Hkv 2, D 8, blocks
+    of 4): "context_0", rows that see no position between rows that do;
+    "past_table", contexts past the table's MB * BS = 16 positions (the
+    table cut to its first 4 blocks) beside one inside it."""
+    if edge == "context_0":
+        return paged_case([0, 5, 0, 13], 4, 2, 8, 4, seed=3)
+    case = paged_case([9, 30, 17], 4, 2, 8, 4, seed=4)
+    case["block_tables"] = np.ascontiguousarray(case["block_tables"][:, :4])
+    return case
+
+
+def test_pallas_decode_kernel_gives_zeros_at_context_0():
+    """JAX's Pallas `_paged_kernel` (interpret mode) reads no block of a
+    row at context 0 and writes acc / max(l, 1e-30) = 0 exactly, what the
+    port's CUDA kernel copies; the other rows are the reference's."""
+    case = _edge_case("context_0")
+    js = [jnp.asarray(case[k]) for k in PAGED_ARGS]
+    got = np.asarray(jax_paged.paged_attention(*js, use_kernel=True,
+                                               interpret=True))
+    assert (got[[0, 2]] == 0).all()
+    np.testing.assert_allclose(
+        got[[1, 3]],
+        np.asarray(jax_paged.paged_attention_reference(*js))[[1, 3]], **TOL)
+
+
+@pytest.mark.parametrize("edge", ["context_0", "past_table"])
+def test_plain_decode_matches_jax_at_the_edges(edge):
+    """The port's plain version gives JAX's reference at context 0 (every
+    position masked: the reference's softmax over the masked scores, not
+    the kernels' zeros) and at contexts past the table (its MB * BS
+    positions, as the Pallas kernel sees them too)."""
+    case = _edge_case(edge)
+    ts = [torch.from_numpy(case[k]) for k in PAGED_ARGS]
+    js = [jnp.asarray(case[k]) for k in PAGED_ARGS]
+    got = paged.paged_attention(*ts, check_block_ids=True).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_paged.paged_attention_reference(*js)), **TOL)
+    if edge == "past_table":
+        np.testing.assert_allclose(got, np.asarray(jax_paged.paged_attention(
+            *js, use_kernel=True, interpret=True)), **TOL)
+
+
 @pytest.mark.parametrize("name", ["mixed_depths", "gqa"])
 def test_paged_prefill_matches_jax(name):
     """A chunk of C queries per row at absolute positions ending at the

@@ -3,10 +3,11 @@ hand counts, and a CPU rehearsal of chip_smoke.py.
 
 The CUDA kernels (csrc/ragged_tc.cuh) split a row's kv axis at fixed
 positions: C positions an iteration, S a split, both anchored at position
-0 and depending on the dtype and head dim only. The wrapper sizes the
-split kernel's grid, its shared memory and the partials' workspace from
-these helpers; the card's tests hold the shared-memory count to the
-library's own.
+0 and depending on the dtype and head dim only. The wrappers of the
+ragged calls and of the decode call (one tile a sequence) size the split
+kernel's grid, its shared memory and the partials' workspace from these
+helpers; the card's tests hold the shared-memory count to the library's
+own.
 """
 
 import io
@@ -91,6 +92,54 @@ def test_shared_memory_bytes_needs_no_library():
                                          bs).smem_bytes)
 
 
+@pytest.mark.parametrize("dtype,hkv,head_dim,max_blocks,splits,smem", [
+    # phase_kernel_time's decode call: 8 rows, H 8 MHA, D 64, tables of
+    # the LM's 128 blocks of 16 = 2048 positions, 8 splits of 256
+    (torch.float32, 8, 64, 128, 8, (1 * 2 * 64 + 8) * 272 + 3 * 80),
+    (torch.bfloat16, 8, 64, 128, 8, (2 * 2 * 64 + 16) * 144 + 3 * 80),
+    # split_path's: tables of 3 blocks, one split, no workspace
+    (torch.float32, 8, 64, 3, 1, (1 * 2 * 64 + 8) * 272 + 3 * 80),
+    # GQA 8:2 at D 128 (bf16 rows (128 + 8) * 2 bytes)
+    (torch.bfloat16, 2, 128, 17, 2, (2 * 2 * 64 + 16) * 272 + 3 * 80),
+])
+def test_decode_plan_by_hand(dtype, hkv, head_dim, max_blocks, splits,
+                             smem, monkeypatch):
+    """The decode call (one tile a sequence, tile_q 1, its G query heads
+    as the tile's rows) takes kernel 1's schedule: its splits, its f32
+    partials [B, Hkv, splits, G, D + 2] (none with one split) and a CTA's
+    shared memory, by hand and with no library to ask."""
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded")
+    monkeypatch.setattr(paged.build, "load", no_library)
+    g = 8 // hkv
+    plan = paged.ragged_plan(dtype, 8, 1, 8, hkv, head_dim, 16, max_blocks)
+    assert plan.splits == splits
+    assert plan.workspace == (None if splits == 1 else
+                              (8, hkv, splits, g, head_dim + 2))
+    assert plan.schedule == paged.ragged_schedule(dtype, head_dim, g, 16)
+    assert plan.schedule.row_groups == 1
+    assert plan.schedule.smem_bytes == smem
+    assert paged.shared_memory_bytes(1, g, head_dim, 16, "paged_attention",
+                                     dtype) == smem
+
+
+def test_ragged_plan_at_the_engine_shape():
+    """phase_kernel_time's ragged call: 72 tiles of tile_q 8 x G 1 over
+    tables of 128 blocks of 16."""
+    plan = paged.ragged_plan(torch.bfloat16, 72, 8, 8, 8, 64, 16, 128)
+    assert plan.splits == 8
+    assert plan.workspace == (72, 8, 8, 8, 66)
+    assert plan.schedule == paged.ragged_schedule(torch.bfloat16, 64, 8, 16)
+
+
+def test_shared_memory_bytes_names_its_kernel():
+    for kernel in ("ragged_paged_attention", "paged_attention"):
+        assert paged.shared_memory_bytes(1, 4, 64, 16, kernel) == \
+            paged.ragged_schedule(torch.float32, 64, 4, 16).smem_bytes
+    with pytest.raises(ValueError, match="no kernel"):
+        paged.shared_memory_bytes(1, 4, 64, 16, "paged_decode")
+
+
 def test_chip_smoke_rehearses_on_the_cpu():
     """`chip_smoke.py --tiny` runs every phase with the plain versions and
     ends with the rehearsal's `ok` line; the kernel_time lines of kernels
@@ -125,5 +174,12 @@ def test_chip_smoke_rehearses_on_the_cpu():
         assert rows, name
         for x in rows:
             assert x["device_ms"] is None and x["host_enqueue_ms"] is None
+            assert x["split_ms"] is None and x["combine_ms"] is None
             assert x["clock"] == "not measured (no card)"
             assert x["ms"] == x["events_ms"] > 0
+    # kernel 3 against kernel 1 on the same decode rows: reported here,
+    # held to equal bits on the card
+    against = [x for x in lines if x.get("phase") == "kernel_vs_plain"
+               and x.get("against")]
+    assert len(against) == 4
+    assert all(x["kernel"] == "paged_attention" for x in against)
