@@ -20,7 +20,11 @@ user calls:
   same step through their plain versions;
 
 - `engine`: a `ServeEngine` (bf16) serving two waves that share a
-  prefix — the fp ragged kernel;
+  prefix — the fp ragged kernel, inside the step's CUDA graph, which
+  each engine captures once and replays every step (`graph_vs_eager`
+  first holds that graph's logits to the eager step's, bit for bit);
+  `serve_profile` traces one more wave for the card's busy time a step
+  and its idle share;
 - `engine_int8`: `ServeEngine.from_saved_model` over a v2 export of the
   same weights with the in-device int8 KV tier on: the shared prefix
   is quantized while fillers run, and the second wave reads it in
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import logging
@@ -285,6 +290,9 @@ TENSOR_CORE_KERNELS = {"flash_fwd": "fwd_tc_kernel",
 # csrc/ragged_tc.cuh): its bf16 instantiations must hold HMMA (mma.sync),
 # and none may spill
 RAGGED_SPLIT_KERNEL = "split_kernel"
+# what a GEMM kernel's name holds, in lower case (cuBLAS, cuBLASLt,
+# CUTLASS), for the profiles' busy time by group
+GEMM_NAME_KEYS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 
 def ptxas_entries(report: str) -> Dict[str, dict]:
@@ -720,6 +728,154 @@ def _expect_launches(kernels, steps: int, layers: int,
     return got
 
 
+def check_one_program(engine, cuda: bool) -> dict:
+    """After a path's run: the engine holds one step program, on the
+    card one captured CUDA graph, and its compile gauge reads 1; one
+    step shape. Returns the program's numbers for the phase's line."""
+    g = engine.step_graph
+    compiles = engine.obs.get("ptpu_engine_compiles").value
+    check(len(g.graphs) == (1 if cuda else 0) and g.compiles == 1
+          and compiles == 1,
+          f"{len(g.graphs)} graphs, {g.compiles} programs, gauge "
+          f"{compiles} (want {int(cuda)}, 1, 1)")
+    check(len(engine.step_shapes) == 1,
+          f"{len(engine.step_shapes)} step shapes (want 1)")
+    return {"graphs": len(g.graphs), "compiles": compiles,
+            "capture_ms": g.capture_ms, "warmup_ms": g.warmup_ms}
+
+
+def serve_profile(engine, prefix: List[int], cfg: dict, seed: int,
+                  cuda: bool) -> dict:
+    """After the counted `engine` run (its launches are not counted):
+    two fresh waves of one shape on the same engine, prefix hits of
+    equal lengths, the first unprofiled with every step on the host
+    clock, the second traced under `torch.profiler`. The card's busy ms
+    a step (device activities of the trace, by group: the ragged split
+    and combine kernels, GEMMs, copies, other) against the unprofiled
+    wave's mean step gives the idle share while serving. Then the host's
+    time to enqueue one replay of the graph, and one whole pad-only
+    program step (operand copy, replay, logits copy, synchronisation).
+    On the CPU (--tiny) the waves run and nothing on a device is
+    measured."""
+    rng = np.random.default_rng(seed)
+    vocab, n_new = cfg["vocab"], cfg["max_new"]
+    waves = [[prefix + rng.integers(0, vocab, 5 + 7 * i).tolist()
+              for i in range(cfg["max_batch"])] for _ in range(2)]
+
+    def drain(wave) -> List[float]:
+        for p in wave:
+            engine.add_request(p, max_new_tokens=n_new)
+        walls = []
+        while True:
+            t0 = time.perf_counter()
+            if not engine.step():
+                return walls
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    plain = drain(waves[0])
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+    with torch.profiler.profile(activities=acts) as prof:
+        traced = drain(waves[1])
+    walls = {"steps": len(plain), "traced_steps": len(traced),
+             "step_ms_median": float(np.median(plain)),
+             "step_ms_mean": float(np.mean(plain)),
+             "traced_step_ms_median": float(np.median(traced))}
+    if not cuda:
+        return {**walls, "device_busy_ms_per_step": None,
+                "idle_share": None, "clock": "not measured (no card)"}
+    groups = {"ragged_split": RAGGED_SPLIT_KERNEL,
+              "ragged_combine": "combine_kernel"}
+    by_group = dict.fromkeys(list(groups) + ["gemm", "memcpy", "other"],
+                             0.0)
+    events = device_events(prof)
+    for name, us in events.items():
+        low = name.lower()
+        group = next((g for g, key in groups.items() if key in name), None)
+        if group is None:
+            group = ("gemm" if any(k in low for k in GEMM_NAME_KEYS)
+                     else "memcpy" if low.startswith("memcpy") else "other")
+        by_group[group] += us / 1e3 / len(traced)
+    busy = sum(by_group.values())
+    check(by_group["ragged_split"] > 0,
+          f"no ragged split kernel in the serve trace: {sorted(events)}")
+    g = engine.step_graph
+    graph = g.graphs[0]
+    iters = 50
+    g.clear()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        g.run()
+    pad_step = (time.perf_counter() - t0) * 1e3 / iters
+    enqueue = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        graph.replay()
+        enqueue += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    top = sorted(events.items(), key=lambda kv: -kv[1])[:8]
+    return {**walls, "device_busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy / walls["step_ms_mean"],
+            "idle_share_traced": 1.0 - busy * len(traced) / sum(traced),
+            "busy_ms_per_step_by_group": by_group,
+            "host_ms_per_replay": enqueue * 1e3 / iters,
+            "pad_step_ms": pad_step,
+            "top_kernels_ms_per_step": {
+                n[:120]: us / 1e3 / len(traced) for n, us in top},
+            "clock": "torch.profiler device time; host perf_counter"}
+
+
+def phase_graph_vs_eager(cfg: dict, tree: dict, device: torch.device,
+                         card: dict) -> None:
+    """The step program against the eager step it replaces: after every
+    step of a wave at full width (8 prompts on a shared prefix, chunked
+    prefill with decode rows riding), `StepGraph.eager()` runs the
+    model's `ragged_step_paged` on the same staged operands and pools,
+    and its logits must equal the graph's bit for bit; the largest gap
+    is printed either way. The fp engine (kernel 1) and the int8-tier
+    engine (kernel 2), each in f32 and bf16. Outside any counted window:
+    the eager steps launch kernels."""
+    rng = np.random.default_rng(SEED + 11)
+    vocab = cfg["vocab"]
+    prefix = rng.integers(0, vocab, cfg["prefix"]).tolist()
+    prompts = [prefix + rng.integers(0, vocab, 16 + 9 * i).tolist()
+               for i in range(cfg["max_batch"])]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _lm(cfg, tree, dtype, device)
+        for compress in (0, cfg["int8"]["compress_blocks"]):
+            eng = ServeEngine(
+                model, block_size=cfg["block_size"],
+                num_blocks=cfg["num_blocks"],
+                max_batch_size=cfg["max_batch"],
+                max_prefill_tokens=cfg["max_prefill"], tile_q=cfg["tile_q"],
+                kv_compress_blocks=compress, device=device)
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=4)
+            worst, unequal = 0.0, 0
+            while eng.step():
+                got = eng.step_graph.logits.clone()
+                want = eng.step_graph.eager()
+                check(bool(torch.isfinite(got).all()),
+                      "non-finite step logits")
+                worst = max(worst, float((got - want).abs().max()))
+                unequal += not torch.equal(got, want)
+            cases.append({"dtype": str(dtype).replace("torch.", ""),
+                          "int8_tier": bool(compress),
+                          "graphs": len(eng.step_graph.graphs),
+                          "steps": eng.steps, "unequal_steps": unequal,
+                          "max_abs_gap": worst})
+    # the engines hold each other in reference cycles (scheduler hooks):
+    # free them, their pools and their graphs' pools before the measured
+    # phases, so that `engine`'s peak memory is its own
+    del eng, model
+    gc.collect()
+    emit({"phase": "graph_vs_eager", "cases": cases,
+          "device": card["kind"]})
+    check(all(c["unequal_steps"] == 0 for c in cases),
+          f"graph logits != eager logits: {cases}")
+
+
 def phase_engine(cfg: dict, tree: dict, device: torch.device,
                  card: dict) -> dict:
     """The fp path: a ServeEngine at full width serving two waves of
@@ -746,7 +902,14 @@ def phase_engine(cfg: dict, tree: dict, device: torch.device,
     wave2 = [prefix + rng.integers(0, vocab, 5 + 7 * i).tolist()
              for i in range(cfg["max_batch"])]
 
+    before = torch.cuda.memory_allocated() if cuda else None
     engine = ServeEngine(model, **engine_kw)
+    # what the step program holds beyond the KV pools: the staging
+    # buffers, the static logits and the graph's pool
+    program_bytes = None
+    if cuda:
+        program_bytes = torch.cuda.memory_allocated() - before - sum(
+            t.nbytes for pair in engine.cache.pools for t in pair)
     _reset_launches()                               # the path's counts
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -762,6 +925,7 @@ def phase_engine(cfg: dict, tree: dict, device: torch.device,
     launches = _expect_launches("ragged_paged_attention", engine.steps,
                                 layers, cuda)
     peak = torch.cuda.max_memory_allocated() if cuda else None
+    reserved = torch.cuda.max_memory_reserved() if cuda else None
 
     reqs = reqs1 + reqs2
     for r in reqs:
@@ -770,12 +934,12 @@ def phase_engine(cfg: dict, tree: dict, device: torch.device,
               f"{len(r.generated)} tokens")
     stats = engine.stats()
     check(stats["hit_tokens"] > 0, "second wave missed the prefix cache")
-    check(len(engine.step_shapes) == 1,
-          f"{len(engine.step_shapes)} step shapes (want 1)")
+    graph = check_one_program(engine, cuda)
     engine.cache.assert_quiesced()
 
     # batched == solo: the long wave-1 request and a wave-2 prefix hit
-    # run alone on fresh engines must give the same streams
+    # run alone on fresh engines (each replaying its own graph) must
+    # give the same streams
     solo_ok = []
     for r in (reqs1[0], reqs2[-1]):
         alone = ServeEngine(model, **engine_kw).generate(
@@ -788,12 +952,17 @@ def phase_engine(cfg: dict, tree: dict, device: torch.device,
            "generated_tokens": n_new * len(reqs), "wall_s": wall,
            "tokens_per_s": n_new * len(reqs) / wall,
            "ttft_p50_ms": float(np.median(ttft)),
-           "peak_bytes": peak, "kernel_launches": launches,
-           "layers": layers, "hit_tokens": stats["hit_tokens"],
+           "peak_bytes": peak, "peak_reserved_bytes": reserved,
+           "program_bytes": program_bytes,
+           "kernel_launches": launches,
+           **graph, "layers": layers, "hit_tokens": stats["hit_tokens"],
            "prompt_tokens": stats["prompt_tokens"],
            "batched_equals_solo": True, "device": card["kind"],
            "nvidia_smi": card["smi"]}
     emit({"phase": "engine", **out})
+    emit({"phase": "serve_profile",
+          **serve_profile(engine, prefix, cfg, SEED + 12, cuda),
+          "device": card["kind"], "nvidia_smi": card["smi"]})
     return out
 
 
@@ -882,8 +1051,7 @@ def phase_engine_int8(cfg: dict, tree: dict, device: torch.device,
     check(st["direct_int8_reads"] > 0, "wave 2 read no int8 block")
     check(st["promote_total"] == 0, f"{st['promote_total']} promotions "
                                     "with kv_promote_hits=0")
-    check(len(engine.step_shapes) == 1,
-          f"{len(engine.step_shapes)} step shapes (want 1)")
+    graph = check_one_program(engine, cuda)
     engine.cache.assert_quiesced()
 
     promote, preqs, _, promote_s = serve(1, fill_waves=waves)
@@ -901,7 +1069,7 @@ def phase_engine_int8(cfg: dict, tree: dict, device: torch.device,
     ttft = sorted((r.first_token_time - r.enqueue_time) * 1e3 for r in reqs)
     pttft = sorted((r.first_token_time - r.enqueue_time) * 1e3
                    for r in preqs)
-    out = {"steps": engine.steps, "kernel_launches": launches,
+    out = {"steps": engine.steps, "kernel_launches": launches, **graph,
            "layers": layers, "dtype": "float32",
            "filler_waves": waves, "wall_s": wall,
            "wave2_s": wave2_s, "wave2_s_promote": promote_s,
@@ -1392,8 +1560,8 @@ def step_profile(trainer, batch, step_ms: float) -> dict:
         group = next((g for g, key in TENSOR_CORE_KERNELS.items()
                       if key in name), None)
         if group is None:
-            group = "gemm" if any(k in low for k in (
-                "gemm", "xmma", "cutlass", "nvjet", "cublas")) else "other"
+            group = ("gemm" if any(k in low for k in GEMM_NAME_KEYS)
+                     else "other")
         by_group[group] += us / 1e3
     busy = sum(by_group.values())
     top = sorted(events.items(), key=lambda kv: -kv[1])[:8]
@@ -1624,6 +1792,7 @@ def main(argv=None) -> int:
     tree = causal_lm_tree(SEED, cfg["vocab"], lm["model_dim"],
                           lm["num_heads"], lm["num_layers"], lm["ffn_dim"])
     phase_step_vs_dense(cfg, tree, device)
+    phase_graph_vs_eager(cfg, tree, device, card)
     paths = {"ragged_paged_attention": phase_engine(cfg, tree, device, card),
              "ragged_paged_attention_mixed": phase_engine_int8(
                  cfg, tree, device, card),

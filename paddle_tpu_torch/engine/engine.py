@@ -8,25 +8,30 @@ shared, copy-on-write), a `Scheduler` plans one MIXED batch per step
 numpy, streams them to per-request callbacks, and emits structured
 `serve_event` JSON (utils/log.py).
 
-Shape discipline — the port's form of the one-compile rule: every step
-runs at a FIXED shape. The step's rows are packed into a single [T]
-token array, T = round_up(chunk_budget, tile_q) + max_batch_size *
+One fixed shape, one program — the JAX engine's one-compile rule: every
+step runs at a FIXED shape. The step's rows are packed into a single
+[T] token array, T = round_up(chunk_budget, tile_q) + max_batch_size *
 tile_q, with each row's tokens in a tile_q-aligned segment and per-tile
 metadata mapping tiles back to rows. Row membership, chunk boundaries
-and prefix-cache hits only change int32 operand VALUES, never shapes
-(`step_shapes` records every signature seen; it stays at one). Pad
+and prefix-cache hits only change int32 operand VALUES, never shapes.
+The operands are staged in fixed buffers (step_graph.py), and on the
+card the step is ONE CUDA graph, captured when the engine is built and
+replayed every step; `ptpu_engine_compiles` reads the size of that
+program cache (1), as JAX's reads its jit cache, and `step_shapes`
+(every operand signature packed) checks the shape beside it. Pad
 positions scatter to the reserved scratch block 0 (context_len 1,
 slot 0) so they can never touch a live sequence. COW block copies run
 in fixed-width batches of _COPY_LANES lanes; unused lanes copy scratch
 block 0 onto itself.
 
-Rows of a batch are computed independently by every op in the step
-(the attention kernel keeps each row's kv loop inside one CTA and
-masked lanes underflow to exact zeros), so a request's logits are
-identical whether it shares the batch or runs alone. Sampling derives
-its rng stream from (request seed, absolute position), never from
-batch composition, so scheduling decisions can't change a request's
-output.
+Rows of a batch are computed independently by every op in the step,
+so a request's logits are identical whether it shares the batch or
+runs alone: the attention kernel splits a row's kv axis at fixed
+positions anchored at position 0 (set by dtype and head dim, never by
+the batch) and combines the splits in order, and masked lanes underflow
+to exact zeros. Sampling derives its rng stream from (request seed,
+absolute position), never from batch composition, so scheduling
+decisions can't change a request's output.
 
 In-device int8 KV tier (`kv_compress_blocks > 0`): cold prefix blocks
 quantize into the cache's int8 pools, and a prefix hit on one is read
@@ -58,6 +63,7 @@ import torch
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.engine.paged_cache import PagedKVCache
 from paddle_tpu_torch.engine.scheduler import Request, Scheduler, StepRow
+from paddle_tpu_torch.engine.step_graph import StepGraph
 from paddle_tpu_torch.io.checkpoint import load_checkpoint
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
@@ -194,9 +200,13 @@ class ServeEngine:
         self.prefill_tokens_computed = 0
         self.peak_occupancy = 0.0
         self.max_chunk_tokens = 0       # largest prefill step actually run
-        # every distinct step-operand shape signature seen: the port's
-        # one-compile invariant is that this stays at exactly one
+        # every distinct step-operand shape signature packed: stays at one
         self.step_shapes: set = set()
+        # the step program over fixed operand buffers: on the card a
+        # CUDA graph, captured here; every step replays it
+        self.step_graph = StepGraph(model, self.cache, self.flat_tokens,
+                                    tile_q, max_batch_size,
+                                    self.max_blocks_per_seq)
         self._register_metrics()
 
     # -- construction from an exported artifact ---------------------------
@@ -257,8 +267,8 @@ class ServeEngine:
             "ptpu_engine_steps_total", "Mixed steps executed")
         self._m_compiles = m.gauge(
             "ptpu_engine_compiles",
-            "Distinct step operand shape signatures (the one-compile "
-            "invariant: stays at 1 across arbitrary traffic)")
+            "Step programs built: captured CUDA graphs on the card, the "
+            "eager step on the CPU (stays at 1 across arbitrary traffic)")
         self._m_occ = m.gauge(
             "ptpu_kv_occupancy", "Fraction of allocatable blocks in use")
         self._m_hit = m.gauge(
@@ -316,6 +326,9 @@ class ServeEngine:
         """Enqueue one completion."""
         if not prompt:
             raise ValueError("empty prompt")
+        if not all(-2 ** 31 <= t < 2 ** 31 for t in prompt):
+            raise ValueError("prompt ids must fit int32, the step's "
+                             "operand type")
         if len(prompt) + 1 > self.max_seq_len:
             raise ValueError(f"prompt len {len(prompt)} leaves no room to "
                              f"generate under max_seq_len {self.max_seq_len}")
@@ -380,7 +393,7 @@ class ServeEngine:
         self._m_step.labels(kind=kind).observe(
             (time.perf_counter() - t0) * 1e3)
         self._m_steps.inc()
-        self._m_compiles.set(len(self.step_shapes))
+        self._m_compiles.set(self.step_graph.compiles)
         self._m_occ.set(self.cache.occupancy())
         self._m_hit.set(self.cache.hit_rate())
         self._m_shared.set(self.cache.shared_blocks)
@@ -482,29 +495,28 @@ class ServeEngine:
 
     def _step_mixed(self, rows: List[StepRow]) -> "tuple[int, int, int]":
         """Pack the plan's rows — decode rows AND prefill chunks — into
-        the flat ragged layout and run ONE step. Row i's token window
-        [start, start+length) lands in a tile_q-aligned segment of the
-        [T] arrays; per-row metadata (block table, chunk-end context,
-        start position) sits at index i, and the null row at index
-        max_batch_size backs pad tiles (ctx 1, scratch table). For a
+        the step program's staged operands and run ONE step. Row i's
+        token window [start, start+length) lands in a tile_q-aligned
+        segment of the [T] arrays; per-row metadata (block table,
+        chunk-end context, start position) sits at index i, and the null
+        row at index max_batch_size backs pad tiles (ctx 1, scratch
+        table). For a
         decode row the window is [seq_len, seq_len+1) of req.tokens —
         the last generated token at its next-token position."""
         self._flush_compress()
         self._flush_promote()
         self._flush_cow()
-        t_flat, tq, nt = self.flat_tokens, self.tile_q, self.num_tiles
-        b = self.max_batch_size
+        t_flat, tq = self.flat_tokens, self.tile_q
         mb = self.max_blocks_per_seq
-        tokens = np.zeros((t_flat,), np.int64)
-        positions = np.zeros((t_flat,), np.int64)
-        # pad positions scatter into scratch block 0 (slot < bs)
-        slots = np.zeros((t_flat,), np.int64)
-        block_tables = np.zeros((b + 1, mb), np.int32)
-        context_lens = np.ones((b + 1,), np.int32)   # null/pad rows: scratch
-        q_starts = np.zeros((b + 1,), np.int32)
-        tile_rows = np.full((nt,), b, np.int32)      # pad tiles -> null row
-        tile_offs = np.zeros((nt,), np.int32)
-        last_idx = np.zeros((b,), np.int64)
+        # pad positions scatter into scratch block 0 (slot < bs), pad
+        # tiles point at the null row (ctx 1, scratch table)
+        self.step_graph.clear()
+        ops = self.step_graph.operands
+        tokens, positions, slots = (ops["tokens"], ops["positions"],
+                                    ops["slots"])
+        block_tables, context_lens = ops["block_tables"], ops["context_lens"]
+        q_starts, last_idx = ops["q_starts"], ops["last_idx"]
+        tile_rows, tile_offs = ops["tile_rows"], ops["tile_offs"]
         cursor = 0
         for i, row in enumerate(rows):
             r = row.req
@@ -525,15 +537,9 @@ class ServeEngine:
                 tile_rows[t0 + k] = i
                 tile_offs[t0 + k] = k * tq
             cursor += ntiles * tq
-        operands = [tokens, positions, block_tables, context_lens, q_starts,
-                    tile_rows, tile_offs, slots, last_idx]
-        self.step_shapes.add(tuple((a.shape, a.dtype.str) for a in operands))
-        dev = [self._to_device(a) for a in operands]
-        with torch.inference_mode():
-            logits = self.model.ragged_step_paged(
-                dev[0], dev[1], self.cache.pools, *dev[2:],
-                qpools=self.cache.qpools, qscales=self.cache.qscales)
-            logits = logits.float().cpu().numpy()
+        self.step_shapes.add(tuple((a.shape, a.dtype.str)
+                                   for a in ops.values()))
+        logits = self.step_graph.run()
         chunks = [w for w in rows if not w.decode]
         decodes = [w for w in rows if w.decode]
         computed = sum(w.length for w in chunks)

@@ -506,7 +506,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 # counts kernel 1 (fp pools), `mixed_launches` kernel 2 (int8 pools
 # given), one a call although a call runs the split kernel and, with
 # more than one split, the combine kernel; the plain version on CPU
-# tensors counts in neither
+# tensors counts in neither. Under CUDA-graph capture a call launches
+# nothing: CapturedLaunches (below) counts it at each replay instead
 ragged_paged_attention.launches = 0
 ragged_paged_attention.mixed_launches = 0
 
@@ -551,3 +552,49 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 # although a call runs the split kernel and, with more than one split,
 # the combine kernel; the plain version on CPU tensors does not count
 paged_attention.launches = 0
+
+# every counter above, as (wrapper, attribute)
+LAUNCH_COUNTERS = ((ragged_paged_attention, "launches"),
+                   (ragged_paged_attention, "mixed_launches"),
+                   (paged_attention, "launches"))
+
+
+class CapturedLaunches:
+    """Launch accounting of a captured CUDA graph. A wrapper counts a
+    launch when it runs on the host, and under capture that records its
+    kernel into the graph without launching it; each replay launches it.
+    `capture(record, warm_up)` runs the warm-up (real launches, set-up
+    that is not counted) and then `record` (the capture), notes how far
+    `record` raised each counter, and puts every counter back; `replay()`
+    adds that rise, once a replay. `counters` are (object, attribute)
+    pairs, by default this module's; any captured callable can pass its
+    wrappers' own."""
+
+    def __init__(self, counters=LAUNCH_COUNTERS):
+        self.counters = tuple(counters)
+        self.per_replay = (0,) * len(self.counters)
+
+    def _read(self) -> tuple:
+        return tuple(getattr(obj, attr) for obj, attr in self.counters)
+
+    def _write(self, values) -> None:
+        for (obj, attr), value in zip(self.counters, values):
+            setattr(obj, attr, value)
+
+    def capture(self, record, warm_up=None):
+        """Returns what `record()` returns."""
+        start = self._read()
+        try:
+            if warm_up is not None:
+                warm_up()
+            before = self._read()
+            out = record()
+            self.per_replay = tuple(
+                a - b for a, b in zip(self._read(), before))
+        finally:
+            self._write(start)
+        return out
+
+    def replay(self) -> None:
+        self._write(tuple(v + n for v, n in
+                          zip(self._read(), self.per_replay)))

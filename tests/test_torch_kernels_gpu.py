@@ -447,6 +447,7 @@ def test_engine_on_card_goes_through_the_kernel():
             .generate([p], max_new_tokens=6)[0] for p in prompts]
     assert batched == solo
     assert len(eng.step_shapes) == 1
+    assert len(eng.step_graph.graphs) == 1
     eng.cache.assert_quiesced()
 
 
@@ -517,6 +518,141 @@ def test_int8_tier_engine_on_card_batched_equals_solo():
         alone = ServeEngine(model, registry=MetricsRegistry(), **kw)
         warm(alone)
         assert alone.generate([prompt], max_new_tokens=6)[0] == stream
+
+
+# -- the step as one captured CUDA graph (engine/step_graph.py) ----------
+
+GRAPH_DIMS = dict(model_dim=64, num_heads=8, num_layers=2, ffn_dim=128,
+                  num_kv_heads=2)
+GRAPH_ENGINE = dict(max_batch_size=4, block_size=16, num_blocks=24,
+                    max_prefill_tokens=32, tile_q=8, device="cuda")
+
+
+def _graph_model(dtype):
+    model = CausalLM(97, dropout=0.0, max_len=128, device="cuda",
+                     dtype=dtype, **GRAPH_DIMS)
+    return load_jax_params(model, causal_lm_tree(0, 97, random_norms=True,
+                                                 **GRAPH_DIMS))
+
+
+def _graph_traffic(seed=1):
+    """(wave 1 on a prefix, fillers that recycle its fp blocks on the
+    24-block pool, wave 2 on the prefix)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, 97, 32).tolist()
+    return ([prefix + rng.integers(0, 97, n).tolist() for n in (3, 40)],
+            [[rng.integers(0, 97, 60).tolist() for _ in range(2)]
+             for _ in range(4)],
+            [prefix + rng.integers(0, 97, n).tolist() for n in (5, 11, 2)])
+
+
+@pytest.mark.parametrize("compress", [0, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_step_equals_eager_step(dtype, compress):
+    """After every step of three waves (chunked prefill, decode rows
+    riding, and with the int8 tier a wave that reads the prefix in
+    place), the model's eager step on the same staged operands and
+    pools gives the graph's logits bit for bit: fp engine (kernel 1)
+    and int8-tier engine (kernel 2), f32 and bf16."""
+    _need_card()
+    eng = ServeEngine(_graph_model(getattr(torch, dtype)),
+                      registry=MetricsRegistry(),
+                      kv_compress_blocks=compress, **GRAPH_ENGINE)
+    wave1, fillers, wave2 = _graph_traffic()
+    int8_steps = 0
+    for wave in [wave1, *fillers, wave2]:
+        for p in wave:
+            eng.add_request(p, max_new_tokens=4)
+        while eng.step():
+            graph = eng.step_graph.logits.clone()
+            assert torch.isfinite(graph).all()
+            assert torch.equal(graph, eng.step_graph.eager())
+            int8_steps += bool(
+                (eng.step_graph.operands["block_tables"] < 0).any())
+    assert len(eng.step_graph.graphs) == 1
+    assert (int8_steps > 0) == bool(compress)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_engine_batched_equals_solo(dtype):
+    """Every engine replays its own graph: a batched wave's streams equal
+    each request served alone on a fresh engine."""
+    _need_card()
+    model = _graph_model(getattr(torch, dtype))
+    wave1, _, _ = _graph_traffic(seed=2)
+    prompts = wave1 + [[5, 9, 2], list(range(1, 30))]
+    eng = ServeEngine(model, registry=MetricsRegistry(), **GRAPH_ENGINE)
+    batched = eng.generate(prompts, max_new_tokens=6)
+    for prompt, stream in zip(prompts, batched):
+        alone = ServeEngine(model, registry=MetricsRegistry(),
+                            **GRAPH_ENGINE)
+        assert alone.generate([prompt], max_new_tokens=6)[0] == stream
+        assert len(alone.step_graph.graphs) == 1
+
+
+def test_graph_direct_int8_read_equals_promote():
+    """The same traffic through two graph engines, one reading the
+    int8-resident prefix in place and one promoting it to fp first,
+    gives the same streams (f32)."""
+    _need_card()
+    model = _graph_model(torch.float32)
+    wave1, fillers, wave2 = _graph_traffic()
+    streams, stats = [], []
+    for hits in (0, 1):
+        eng = ServeEngine(model, registry=MetricsRegistry(),
+                          kv_compress_blocks=64, kv_promote_hits=hits,
+                          **GRAPH_ENGINE)
+        for wave in [wave1, *fillers]:
+            eng.generate(wave, max_new_tokens=4)
+        streams.append(eng.generate(wave2, max_new_tokens=6))
+        stats.append(eng.cache.stats())
+        assert len(eng.step_graph.graphs) == 1
+    assert streams[0] == streams[1]
+    assert stats[0]["direct_int8_reads"] > 0 and stats[0]["promote_total"] == 0
+    assert stats[1]["promote_total"] > 0 and stats[1]["direct_int8_reads"] == 0
+
+
+@pytest.mark.parametrize("compress", [0, 64])
+def test_one_graph_per_engine_across_waves(compress):
+    """Capture at construction launches nothing that counts; three waves
+    later the engine holds the same single graph, the gauge reads 1,
+    and the counted launches are steps x layers, all of one kernel."""
+    _need_card()
+    model = _graph_model(torch.bfloat16)
+    before = (paged.ragged_paged_attention.launches,
+              paged.ragged_paged_attention.mixed_launches)
+    eng = ServeEngine(model, registry=MetricsRegistry(),
+                      kv_compress_blocks=compress, **GRAPH_ENGINE)
+    assert (paged.ragged_paged_attention.launches,
+            paged.ragged_paged_attention.mixed_launches) == before
+    graph = eng.step_graph.graphs[0]
+    assert eng.step_graph.capture_ms > 0 and eng.step_graph.warmup_ms > 0
+    wave1, fillers, wave2 = _graph_traffic()
+    for wave in (wave1, fillers[0], wave2):
+        eng.generate(wave, max_new_tokens=5)
+        assert eng.step_graph.graphs == [graph]
+        assert eng.obs.get("ptpu_engine_compiles").value == 1
+    counted = (paged.ragged_paged_attention.launches - before[0],
+               paged.ragged_paged_attention.mixed_launches - before[1])
+    want = eng.steps * GRAPH_DIMS["num_layers"]
+    assert counted == ((0, want) if compress else (want, 0))
+    assert len(eng.step_shapes) == 1
+    eng.cache.assert_quiesced()
+
+
+@pytest.mark.parametrize("which", ["pools", "qpools", "qscales"])
+def test_graph_rebound_pool_raises(which):
+    """A pool rebound under the graph raises before the next replay
+    instead of the graph writing the old address."""
+    _need_card()
+    eng = ServeEngine(_graph_model(torch.float32),
+                      registry=MetricsRegistry(), kv_compress_blocks=64,
+                      **GRAPH_ENGINE)
+    eng.generate([[5, 9, 2]], max_new_tokens=2)
+    layers = getattr(eng.cache, which)
+    layers[0] = (layers[0][0].clone(), layers[0][1])
+    with pytest.raises(RuntimeError, match="pools moved"):
+        eng.generate([[5, 9, 2]], max_new_tokens=2)
 
 
 # -- flash attention: kernels 4 (forward), 5 (dq) and 6 (dk/dv) ---------
