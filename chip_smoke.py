@@ -32,6 +32,14 @@ user calls:
 - `split_path`: `CausalLM.prefill_chunk_paged` then
   `decode_step_paged` — the paged-decode kernel (the ragged kernels'
   split and combine kernels over one decode tile a sequence).
+- `generate` (f32 and bf16): `CausalLM.generate` — `prefill` through
+  the flash forward kernel, then `decode_step`s over a dense KV cache —
+  held against the plain prefill, the dense forward, `prefill_paged`
+  against solo prefills, and (f32) a `ServeEngine`'s greedy streams;
+- `resume`: the train path saved by a `CheckpointManager` after 3 of 6
+  steps and resumed by a Trainer made anew, bit for bit against the
+  straight run; `optimizers`: the fourteen optimizers and
+  `ModelAverage` on the card against the CPU.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -51,8 +59,10 @@ import itertools
 import json
 import logging
 import shutil
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -60,8 +70,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch import optim
 from paddle_tpu_torch.core import Trainer
 from paddle_tpu_torch.engine import ServeEngine
+from paddle_tpu_torch.engine import engine as engine_mod
+from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.models import CausalLM, load_jax_params
@@ -74,6 +87,7 @@ from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       pack_prompts, packed_segment_ids,
                                       paged_case, ragged_case,
                                       write_serving_export)
+from paddle_tpu_torch.utils.tree import flatten_with_keys
 
 # the repo's LM configuration (paddle_tpu/benchmark/models.py:150-152)
 LM_BASE = dict(model_dim=512, num_heads=8, num_layers=6, ffn_dim=2048,
@@ -1705,6 +1719,377 @@ def phase_train_vs_plain(cfg: dict, tree: dict,
               f"{name}: gradient {r['grad_worst_param']} off by "
               f"{r['grad_worst_over_bar']} x its bar")
 
+# -- the dense KV-cache path, checkpoints and the optimizers ---------------
+
+def _logit_gap(got: torch.Tensor, want: torch.Tensor, bar: float) -> dict:
+    """|got - want| against the bar `bar` absolute plus `bar` relative:
+    the worst ratio (<= 1 passes) and the largest absolute gap."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return {"max_abs_err": float(diff.max()),
+            "worst_over_bar": float((diff / (bar + bar * w.abs())).max())}
+
+
+def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    """Per row, the largest logit minus the second largest."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+@contextlib.contextmanager
+def recorded_engine_gaps(gaps: Dict[Tuple[int, int], float]):
+    """While open, every token the engine samples records its logits'
+    top-2 gap under (request id, position). The sampling is unchanged."""
+    saved = engine_mod._sample
+
+    def sample(logits, req, pos):
+        top = np.sort(logits.astype(np.float32))[-2:]
+        gaps[(req.req_id, pos)] = float(top[1] - top[0])
+        return saved(logits, req, pos)
+
+    engine_mod._sample = sample
+    try:
+        yield
+    finally:
+        engine_mod._sample = saved
+
+
+def _stream_split(gen: List[int], eng: List[int], gen_gaps: List[float],
+                  eng_gaps: List[float], tie: float) -> dict:
+    """How far two greedy streams agree: the tokens equal before the
+    first difference, the first position where either path's top-2
+    logits lie within `tie`, and whether the streams agree up to it."""
+    split = next((i for i, (a, b) in enumerate(zip(gen, eng)) if a != b),
+                 None)
+    near = next((i for i, (a, b) in enumerate(zip(gen_gaps, eng_gaps))
+                 if min(a, b) < tie), None)
+    ok = split is None or (near is not None and near <= split)
+    return {"agreed": len(gen) if split is None else split,
+            "first_near_tie": near, "ok": ok,
+            "gap_at_split": (None if split is None else
+                             min(gen_gaps[split], eng_gaps[split]))}
+
+
+def phase_generate(cfg: dict, tree: dict, device: torch.device,
+                   card: dict) -> dict:
+    """The dense KV-cache path at full width, f32 (bar 1e-4) and bf16
+    (bar 2e-2), absolute plus relative:
+    - `generate` on B prompts at each length of cfg["gen"]["lens"] with
+      `new` tokens each: the flash forward launches once per layer per
+      prefill call and a decode step launches no kernel of the port;
+      tokens/s over both calls, and one prefill's ms;
+    - the prefill's logits through kernel 4 against the same prefill
+      under `plain_flash()`; each decode step's logits (a `prefill` and
+      `decode_step` loop over generate's own tokens, whose argmaxes must
+      be generate's tokens) against `CausalLM.forward` over the same
+      tokens (kernel 4 again);
+    - `prefill_paged` over the right-padded batch of cfg["gen"]
+      ["paged_lens"] against `prefill` run on each prompt alone;
+    - f32 only: generate's greedy streams against a `ServeEngine`'s on
+      the same weights and prompts (kernel 1 there): they must agree up
+      to the first position where either path's top-2 logits lie within
+      1e-4."""
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gcfg = cfg["gen"]
+    b, lens, new = gcfg["batch"], gcfg["lens"], gcfg["new"]
+    layers = cfg["lm"]["num_layers"]
+    rng = np.random.default_rng(SEED + 20)
+    prompts = {t0: torch.from_numpy(rng.integers(
+        0, cfg["vocab"], (b, t0))).to(device) for t0 in lens}
+    paged_lens = gcfg["paged_lens"]
+    paged_prompts = [rng.integers(0, cfg["vocab"], n) for n in paged_lens]
+    out = {}
+    for dtype, bar in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        name = str(dtype).replace("torch.", "")
+        model = _lm(cfg, tree, dtype, device)
+        model.generate(prompts[lens[0]][:, :8], 2)   # warm-up
+        _reset_launches()                               # the path's counts
+        sync()
+        t0 = time.perf_counter()
+        toks = {t: model.generate(p, new) for t, p in prompts.items()}
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _expect_launches("flash_fwd", len(lens), layers, cuda)
+        res = {"batch": b, "prompt_lens": list(lens), "new_tokens": new,
+               "wall_s": wall, "tokens_per_s": b * new * len(lens) / wall,
+               "kernel_launches": launches, "bar": bar}
+        gen_gaps = {}
+        with torch.no_grad():
+            for t, p in prompts.items():
+                caches = model.init_cache(b, t + new)
+                _reset_launches()
+                logits, caches = model.prefill(p, caches)
+                _expect_launches("flash_fwd", 1, layers, cuda)
+                with plain_flash():
+                    plain, _ = model.prefill(p, model.init_cache(b, t + new))
+                steps = [logits]
+                _reset_launches()
+                for i in range(t, t + new - 1):
+                    lg, caches = model.decode_step(toks[t][:, i], i, caches)
+                    steps.append(lg)
+                _expect_launches("flash_fwd", 0, layers, cuda)
+                steps = torch.stack(steps, dim=1)           # [B, new, V]
+                check(torch.equal(steps.argmax(-1), toks[t][:, t:]),
+                      f"{name} T0 {t}: generate's tokens are not the "
+                      "argmax of its own decode steps")
+                dense = model(toks[t][:, :t + new - 1])[:, t - 1:]
+                res[f"prefill_vs_plain_T{t}"] = _logit_gap(logits, plain,
+                                                           bar)
+                res[f"decode_vs_forward_T{t}"] = _logit_gap(steps, dense,
+                                                            bar)
+                gen_gaps[t] = _top2_gap(steps).cpu()
+                check(bool(torch.isfinite(steps).all()),
+                      f"{name} T0 {t}: non-finite decode logits")
+            if cuda:
+                p = prompts[lens[-1]]
+                res["prefill_ms"] = time_ms(
+                    lambda: model.prefill(p, model.init_cache(b, lens[-1])),
+                    iters=10, warmup=2, cuda=True)
+            tpad = max(paged_lens)
+            padded = torch.zeros((len(paged_lens), tpad), dtype=torch.long)
+            for row, pr in enumerate(paged_prompts):
+                padded[row, :len(pr)] = torch.from_numpy(pr)
+            last = torch.tensor([n - 1 for n in paged_lens])
+            _reset_launches()
+            paged_logits, kvs = model.prefill_paged(padded.to(device),
+                                                    last.to(device))
+            solo = torch.cat([model.prefill(
+                torch.from_numpy(pr)[None].to(device),
+                model.init_cache(1, len(pr)))[0] for pr in paged_prompts])
+            _expect_launches("flash_fwd", 1 + len(paged_lens), layers, cuda)
+            check(len(kvs) == layers and tuple(kvs[0][0].shape)[:2]
+                  == (len(paged_lens), tpad), "prefill_paged k/v shape")
+            res["prefill_paged_vs_solo"] = _logit_gap(paged_logits, solo,
+                                                      bar)
+        for key, gap in res.items():
+            if isinstance(gap, dict) and "worst_over_bar" in gap:
+                check(gap["worst_over_bar"] <= 1.0,
+                      f"generate {name} {key}: {gap} over the bar {bar}")
+        if dtype == torch.float32:
+            res["engine_streams"] = _generate_vs_engine(
+                cfg, model, prompts, toks, gen_gaps, new)
+        res.update(device=card["kind"], nvidia_smi=card["smi"])
+        emit({"phase": "generate", "dtype": name, **res})
+        if cuda:
+            emit({"phase": "generate_profile", "dtype": name,
+                  **generate_profile(model, prompts[lens[-1]], new),
+                  "device": card["kind"], "nvidia_smi": card["smi"]})
+        out[name] = res
+        del model
+        gc.collect()
+    return out
+
+
+def generate_profile(model, prompt: torch.Tensor, new: int) -> dict:
+    """One more `generate` call under `torch.profiler` (after the
+    counted run; its launches are not counted): the card's busy time by
+    kernel group against the call's wall time, and the idle share."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.generate(prompt, new)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    by_group = {"flash_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, us in events.items():
+        low = name.lower()
+        group = ("flash_fwd" if ("fwd_kernel" in name
+                                 or TENSOR_CORE_KERNELS["flash_fwd"] in name)
+                 else "gemm" if any(k in low for k in GEMM_NAME_KEYS)
+                 else "other")
+        by_group[group] += us / 1e3
+    busy = sum(by_group.values())
+    top = sorted(events.items(), key=lambda kv: -kv[1])[:8]
+    return {"prompt_len": prompt.shape[1], "batch": prompt.shape[0],
+            "new_tokens": new, "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall, "busy_ms_by_group": by_group,
+            "top_kernels_ms": {n[:120]: us / 1e3 for n, us in top},
+            "clock": "torch.profiler device time"}
+
+
+def _generate_vs_engine(cfg: dict, model, prompts, toks, gen_gaps,
+                        new: int) -> dict:
+    """generate's greedy streams against a ServeEngine's on the same f32
+    model and prompts (see phase_generate)."""
+    engine = ServeEngine(model, block_size=cfg["block_size"],
+                         num_blocks=cfg["num_blocks"],
+                         max_batch_size=cfg["max_batch"],
+                         max_prefill_tokens=cfg["max_prefill"],
+                         tile_q=cfg["tile_q"], device=model.device)
+    gaps: Dict[Tuple[int, int], float] = {}
+    rows = []
+    with recorded_engine_gaps(gaps):
+        for t, p in prompts.items():
+            reqs = [engine.add_request(row.tolist(), max_new_tokens=new)
+                    for row in p.cpu()]
+            engine.run()
+            for i, r in enumerate(reqs):
+                eng_gaps = [gaps[(r.req_id, t + k)] for k in range(new)]
+                rows.append({"prompt_len": t, "row": i, **_stream_split(
+                    toks[t][i, t:].tolist(), r.generated,
+                    gen_gaps[t][i].tolist(), eng_gaps, 1e-4)})
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"generate vs engine streams split before a near tie: "
+                   f"{bad}")
+    return {"rows": len(rows), "tokens_agreed": sum(r["agreed"]
+                                                    for r in rows),
+            "tokens": new * len(rows),
+            "splits": [r for r in rows if r["agreed"] < new]}
+
+
+def _state_leaves(trainer) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in
+            flatten_with_keys(trainer.state())}
+
+
+def phase_resume(cfg: dict, tree: dict, device: torch.device,
+                 card: dict) -> dict:
+    """Checkpoint and resume of the train path (bf16 Adam, B x T of
+    cfg["resume"], dropout 0): `steps` steps straight; then `split`
+    steps, `CheckpointManager.save` (max_to_keep 2, in a temporary
+    directory), a model, optimizer and Trainer made anew (random init),
+    `restore_latest` + `load_state`, and the remaining steps. The
+    resumed run's losses, parameters, slots and step must equal the
+    straight run's bit for bit (the flash kernels hold no atomics, and
+    the step's generator is derived from (seed, step)); the checkpoint
+    must pass `verify_checkpoint`. Times the save, an async save (the
+    return, then the write) and the restore."""
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rcfg = cfg["resume"]
+    steps, split = rcfg["steps"], rcfg["split"]
+    batches = _lm_batches(cfg, steps, rcfg["batch"], device, SEED + 30)
+    layers = cfg["lm"]["num_layers"]
+
+    def trainer(model):
+        return Trainer(model, Adam(model.parameters(), cfg["train_lr"]),
+                       lm_loss, seed=SEED)
+
+    straight = trainer(_lm(cfg, tree, cfg["dtype"], device))
+    want_losses = [straight.train_step(b)["loss"].item() for b in batches]
+    want = _state_leaves(straight)
+    del straight
+    first = trainer(_lm(cfg, tree, cfg["dtype"], device))
+    for b in batches[:split]:
+        first.train_step(b)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "sync"), max_to_keep=2)
+        sync()
+        t0 = time.perf_counter()
+        path = mgr.save(first.state(), step=first.step)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        manifest = verify_checkpoint(path)
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        amgr = CheckpointManager(os.path.join(tmp, "async"), max_to_keep=2,
+                                 async_save=True)
+        sync()
+        t0 = time.perf_counter()
+        amgr.save(first.state(), step=first.step)
+        async_return_ms = (time.perf_counter() - t0) * 1e3
+        amgr.wait()
+        async_total_ms = (time.perf_counter() - t0) * 1e3
+        del first
+        gc.collect()
+        resumed = trainer(CausalLM(vocab=cfg["vocab"],
+                                   max_len=cfg["max_len"], dtype=cfg["dtype"],
+                                   device=device, **cfg["lm"]))
+        sync()
+        t0 = time.perf_counter()
+        ts, step = mgr.restore_latest(target=resumed.state())
+        resumed.load_state(ts)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    check(step == split and resumed.step == split,
+          f"restored step {step}, trainer step {resumed.step}")
+    _reset_launches()                               # the path's counts
+    got_losses = [resumed.train_step(b)["loss"].item()
+                  for b in batches[split:]]
+    launches = _expect_launches(FLASH_KERNELS, steps - split, layers, cuda)
+    got = _state_leaves(resumed)
+    unequal = sorted(k for k in want if not torch.equal(got[k], want[k]))
+    out = {"steps": steps, "saved_at": split, "batch": rcfg["batch"],
+           "seq": cfg["train_seq"],
+           "dtype": str(cfg["dtype"]).replace("torch.", ""),
+           "losses_straight": want_losses,
+           "losses_resumed": want_losses[:split] + got_losses,
+           "leaves": len(want), "unequal_leaves": unequal,
+           "checkpoint_bytes": nbytes,
+           "checkpoint_leaves": len(manifest["leaves"]),
+           "save_ms": save_ms, "async_save_return_ms": async_return_ms,
+           "async_save_total_ms": async_total_ms, "restore_ms": restore_ms,
+           "kernel_launches": launches, "device": card["kind"],
+           "nvidia_smi": card["smi"]}
+    emit({"phase": "resume", **out})
+    check(got_losses == want_losses[split:],
+          f"resumed losses {got_losses} != {want_losses[split:]}")
+    check(not unequal, f"resumed state differs at {unequal[:5]}")
+    return out
+
+
+OPTIMIZER_CASES = {
+    "SGD": (0.05, {}), "Momentum": (0.05, dict(use_nesterov=True)),
+    "LarsMomentum": (0.5, dict(lars_coeff=0.1)),
+    "Adagrad": (0.05, dict(initial_accumulator_value=0.1)),
+    "DecayedAdagrad": (0.05, {}), "Adam": (0.01, {}), "AdamW": (0.01, {}),
+    "Adamax": (0.01, {}), "Adadelta": (1.0, {}),
+    "RMSProp": (0.01, dict(centered=True, momentum=0.5)),
+    "Ftrl": (0.05, dict(l1=0.01, l2=0.02)),
+    "ProximalGD": (0.05, dict(l1=0.01, l2=0.02)),
+    "ProximalAdagrad": (0.05, dict(l1=0.01, l2=0.02)),
+    "Lamb": (0.01, {}),
+}
+
+
+def phase_optimizers(cfg: dict, device: torch.device) -> None:
+    """Each of the fourteen optimizers (with a global-norm clip) and
+    `ModelAverage`: 3 steps on card tensors against the same code on the
+    CPU, the parameters and every slot within 1e-6 of each tensor's
+    largest magnitude (reductions sum in other orders)."""
+    rng = np.random.default_rng(SEED + 40)
+    shapes = cfg["optim_shapes"]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(2 * rng.standard_normal(s)).astype(np.float32)
+              for s in shapes] for _ in range(3)]
+
+    def run(name, dev):
+        lr, kw = OPTIMIZER_CASES[name]
+        params = [torch.nn.Parameter(torch.tensor(x, device=dev))
+                  for x in init]
+        opt = getattr(optim, name)(params, lr, grad_clip=("global_norm",
+                                                          10.0), **kw)
+        for step in grads:
+            for p, g in zip(params, step):
+                p.grad = torch.from_numpy(g).to(dev)
+            opt.step()
+        return [p.detach().cpu() for p in params] + [
+            opt.state[p][s].cpu() for p in params for s in opt.SLOTS]
+
+    worst = {}
+    for name in OPTIMIZER_CASES:
+        errs = [float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                for g, w in zip(run(name, device), run(name, "cpu"))]
+        worst[name] = max(errs)
+    avg = optim.ModelAverage(decay=0.9)
+    card_avg = avg.init(torch.tensor(x, device=device) for x in init)
+    cpu_avg = avg.init(torch.tensor(x) for x in init)
+    for step in grads:
+        avg.update(card_avg, [torch.from_numpy(g).to(device) for g in step])
+        avg.update(cpu_avg, [torch.from_numpy(g) for g in step])
+    worst["ModelAverage"] = max(
+        float((a.cpu() - b).abs().max() / b.abs().max())
+        for a, b in zip(card_avg, cpu_avg))
+    emit({"phase": "optimizers", "device_vs_cpu_rel_err": worst,
+          "bar": 1e-6, "shapes": [list(s) for s in shapes],
+          "ok": max(worst.values()) <= 1e-6})
+    bad = {k: v for k, v in worst.items() if v > 1e-6}
+    check(not bad, f"optimizers on the card vs the CPU: {bad}")
+
+
 # -- configurations -------------------------------------------------------
 
 def full_config() -> dict:
@@ -1738,7 +2123,14 @@ def full_config() -> dict:
         # train: B 4 x T 2048 bf16, Adam at the lr of
         # examples/train_causal_lm.py; train_vs_plain: one f32 step
         train_steps=10, train_batch=4, train_seq=2048, train_lr=3e-3,
-        tvp_batch=4)
+        tvp_batch=4,
+        # generate: B 8 at two prompt lengths, 64 new tokens each;
+        # prefill_paged over 8 prompts of 300-512 right-padded
+        gen=dict(batch=8, lens=(300, 512), new=64,
+                 paged_lens=[300 + 30 * i for i in range(7)] + [512]),
+        # resume: the train phase's batch, bf16 Adam, saved after 3 of 6
+        resume=dict(steps=6, split=3, batch=4),
+        optim_shapes=[(512, 512), (2048,), (8, 64, 64)])
 
 
 def tiny_config() -> dict:
@@ -1759,7 +2151,10 @@ def tiny_config() -> dict:
         split_prompts=(20, 13), split_steps=3,
         flash_check=(2, 40, 8, 8), flash_time=(1, 48, 8, 8), flash_iters=2,
         train_steps=10, train_batch=2, train_seq=32, train_lr=3e-3,
-        tvp_batch=2)
+        tvp_batch=2,
+        gen=dict(batch=2, lens=(12, 20), new=6, paged_lens=[12, 16, 20]),
+        resume=dict(steps=4, split=2, batch=2),
+        optim_shapes=[(4, 4), (6,)])
 
 
 def main(argv=None) -> int:
@@ -1800,6 +2195,9 @@ def main(argv=None) -> int:
     train = phase_train(cfg, tree, device, card)
     paths.update(dict.fromkeys(FLASH_KERNELS, train))
     phase_train_vs_plain(cfg, tree, device)
+    generate = phase_generate(cfg, tree, device, card)
+    phase_resume(cfg, tree, device, card)
+    phase_optimizers(cfg, device)
 
     rows = []
     for name, (source, replaces, _) in KERNEL_ROWS.items():
@@ -1813,6 +2211,9 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tensor_cores": tensor_cores.get(name, False)})
+        if name == "flash_fwd":
+            rows[-1]["launches_generate"] = {
+                dt: r["kernel_launches"][name] for dt, r in generate.items()}
     emit({"kernels": rows})
     if cuda:
         emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

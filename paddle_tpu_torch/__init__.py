@@ -12,5 +12,6 @@ raise without one unless the caller passes `device="cpu"`.
 """
 
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.utils.flags import FLAGS, get_flags, set_flags
 
-__all__ = ["resolve_device"]
+__all__ = ["FLAGS", "get_flags", "resolve_device", "set_flags"]

@@ -1,5 +1,10 @@
-"""The training runtime of the port (paddle_tpu/core counterpart)."""
+"""The runtime of the port (paddle_tpu/core counterpart): training,
+its resumable state, and the program runners."""
 
-from paddle_tpu_torch.core.executor import Trainer, supervised_loss
+from paddle_tpu_torch.core.executor import (
+    Executor, ExecutorError, NaiveExecutor, Trainer, TrainState,
+    check_nan_inf, executor_cache_stats, host_step_of, supervised_loss)
 
-__all__ = ["Trainer", "supervised_loss"]
+__all__ = ["Executor", "ExecutorError", "NaiveExecutor", "Trainer",
+           "TrainState", "check_nan_inf", "executor_cache_stats",
+           "host_step_of", "supervised_loss"]

@@ -6,7 +6,7 @@ Module and parameter names mirror the JAX module tree so a JAX
 `v_proj` or head-major fused `qkv`, then `out_proj`), `ln2`, `ffn`
 (`fc1`, `fc2`), then `ln_f` and, when untied, `head`.
 
-Three paths:
+Four paths:
 
 - `CausalLM.forward` — the dense training forward (logits, or the
   pre-head hidden states for the fused cross-entropy), with
@@ -21,6 +21,11 @@ Three paths:
 - the split path: `CausalLM.prefill_chunk_paged` (a window of each
   prompt, plain `paged_prefill_attention`) then `decode_step_paged`
   (one token per sequence through the `paged_attention` kernel).
+- the dense KV-cache path: `CausalLM.prefill` (block-causal over the
+  prompt: the flash forward kernel on the card) then `decode_step` (one
+  token against a [B, Tmax] cache under an explicit mask, `mha`'s dense
+  path), driven by `generate`; `prefill_paged` gives a right-padded
+  batch's prompt k/v.
 
 Every paged path writes the step's k/v into the per-layer block pools
 IN PLACE (JAX returns new pools; an in-place `index_copy_` saves a
@@ -31,7 +36,7 @@ tied head stay `torch.matmul`, as JAX left them to XLA.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,8 +45,11 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.kernels.attention import mha
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from paddle_tpu_torch.utils.rng import fold_in
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+# one layer's dense decode cache: {"k", "v"} [B, Tmax, Hkv, hd]
+Cache = Dict[str, torch.Tensor]
 # one layer's int8 tier: (kq_pool, vq_pool, k_scales, v_scales)
 QPool = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -53,6 +61,22 @@ def sinusoid_position_encoding(maxlen: int, dim: int,
     i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / dim)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def init_kv_caches(layers, batch: int, max_len: int,
+                   dtype: Optional[torch.dtype] = None) -> List[Cache]:
+    """Zeroed per-layer KV caches for the dense incremental decode
+    (transformer.py:47): one {"k", "v"} [B, max_len, Hkv, hd] dict per
+    layer of `layers` (CausalBlocks), on the layers' device. The caches
+    take the model's compute dtype (a bf16 model decodes from bf16
+    caches) unless `dtype` overrides it."""
+    attn = layers[0].attn
+    dev = attn.out_proj.weight.device
+    shape = (batch, max_len, attn.num_kv_heads, attn.head_dim)
+    dt = dtype if dtype is not None else attn.dtype
+    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in layers]
 
 
 class MultiHeadAttention(nn.Module):
@@ -111,19 +135,44 @@ class MultiHeadAttention(nn.Module):
                                        self.head_dim))
 
     def forward(self, x: torch.Tensor, segment_ids=None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """Dense causal self-attention (JAX forward without `cache`,
-        transformer.py:129-184): x [B, T, D] -> [B, T, D]. segment_ids
-        [B, T] keeps attention inside each packed document; in training,
-        attention dropout at this layer's rate draws from `generator`."""
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None, causal: bool = True,
+                cache: Optional[Cache] = None, decode_pos: int = 0,
+                prefill: bool = False):
+        """Self-attention (transformer.py:129-184): x [B, T, D] ->
+        [B, T, D]. segment_ids [B, T] keeps attention inside each packed
+        document; `mask` (broadcastable to [B, H, T, Tk], True = attend)
+        is an explicit pattern, which takes `mha`'s dense path; in
+        training, attention dropout at this layer's rate draws from
+        `generator`.
+
+        With `cache` ({"k", "v"} [B, Tmax, Hkv, hd]) this call's k/v are
+        written at `decode_pos` into a NEW cache (the given one is left
+        as it is, as JAX's dynamic_update_slice leaves it; the start is
+        clamped so the window fits, as JAX clamps it) and the call
+        returns (out, new cache). `prefill=True` attends over this
+        call's k/v only (the caller passes causal=True: on the card that
+        is the flash forward kernel); otherwise the query attends over
+        the whole new cache under `mask`."""
         b, t = x.shape[:2]
         qh, kh, vh = self._project(x)
+        if cache is not None:
+            tmax = cache["k"].shape[1]
+            start = min(max(int(decode_pos), 0), tmax - t)
+            idx = torch.arange(start, start + t, device=x.device)
+            cache = {"k": cache["k"].index_copy(1, idx,
+                                                kh.to(cache["k"].dtype)),
+                     "v": cache["v"].index_copy(1, idx,
+                                                vh.to(cache["v"].dtype))}
+            if not prefill:
+                kh, vh = cache["k"], cache["v"]
         drop = self.training and self.drop.rate > 0
-        out = mha(qh, kh, vh, causal=True, segment_ids=segment_ids,
+        out = mha(qh, kh, vh, mask=mask, causal=causal,
+                  segment_ids=segment_ids,
                   generator=generator if drop else None,
                   dropout_rate=self.drop.rate if self.training else 0.0)
-        return self.out_proj(out.reshape(b, t, self.model_dim))
+        out = self.out_proj(out.reshape(b, t, self.model_dim))
+        return out if cache is None else (out, cache)
 
     @staticmethod
     def _scatter(k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -233,11 +282,22 @@ class CausalBlock(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, segment_ids=None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        return self._ffn_residual(x, self.attn(
-            self.ln1(x), segment_ids=segment_ids, generator=generator),
-            generator)
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None, decode_pos: int = 0,
+                prefill: bool = False):
+        """x [B, T, D] -> [B, T, D], or (x, new cache) with `cache`
+        (transformer.py:551). Training and prefill attend block-causally
+        over this call's k/v; a decode step's `mask` carries the <= pos
+        constraint over the cache."""
+        h = self.attn(self.ln1(x), segment_ids=segment_ids,
+                      generator=generator, mask=mask,
+                      causal=cache is None or prefill, cache=cache,
+                      decode_pos=decode_pos, prefill=prefill)
+        if cache is None:
+            return self._ffn_residual(x, h, generator)
+        h, cache = h
+        return self._ffn_residual(x, h, generator), cache
 
     def _ffn_residual(self, x: torch.Tensor, h: torch.Tensor,
                       generator: Optional[torch.Generator] = None
@@ -345,6 +405,121 @@ class CausalLM(nn.Module):
         if self.tie_embeddings:
             return self.embed.weight.t(), None
         return self.head.weight, self.head.bias
+
+    # -- dense incremental decode (transformer.py:685-880) ----------------
+    def init_cache(self, batch: int,
+                   max_len: Optional[int] = None) -> List[Cache]:
+        return init_kv_caches(self.blocks, batch, max_len or self.max_len)
+
+    def _prefill_pass(self, tokens: torch.Tensor, caches: Sequence[Cache]
+                      ) -> Tuple[torch.Tensor, List[Cache]]:
+        """Hidden states [B, T0, D] before `ln_f`, and the caches with
+        positions [0, T0) written: one parallel pass, each layer's
+        attention block-causal over this call's k/v."""
+        t0 = tokens.shape[1]
+        x = self.embed(tokens.long()) * math.sqrt(self.model_dim)
+        x = x + self.pe[:t0].to(x.dtype)[None]
+        new_caches = []
+        for blk, cache in zip(self.blocks, caches):
+            x, nc = blk(x, cache=cache, decode_pos=0, prefill=True)
+            new_caches.append(nc)
+        return x, new_caches
+
+    def prefill(self, tokens: torch.Tensor, caches: Sequence[Cache]
+                ) -> Tuple[torch.Tensor, List[Cache]]:
+        """ONE parallel pass over a [B, T0] prompt that writes k/v for
+        positions [0, T0) into new caches and returns the last position's
+        logits [B, V] (transformer.py:688). Attention is block-causal
+        over the T0 k/v: the flash forward kernel on the card, never a
+        dense mask over the whole cache."""
+        x, new_caches = self._prefill_pass(tokens, caches)
+        return self._head(self.ln_f(x[:, -1])), new_caches
+
+    def prefill_paged(self, tokens: torch.Tensor, last_pos: torch.Tensor
+                      ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor,
+                                                          torch.Tensor]]]:
+        """Paged-serving prefill (transformer.py:706): tokens [B, Tpad]
+        right-padded prompts (causal attention keeps the padding out of
+        every real position), last_pos [B] the index of each prompt's
+        last real token. Returns (logits [B, V] at last_pos, each
+        layer's (k, v) [B, Tpad, Hkv, hd] in the cache dtype)."""
+        b, t0 = tokens.shape
+        x, caches = self._prefill_pass(
+            tokens, init_kv_caches(self.blocks, b, t0))
+        # LayerNorm is row-wise: gathering the last rows first gives the
+        # values of normalising every row
+        last_h = x[torch.arange(b, device=x.device), last_pos.long()]
+        return (self._head(self.ln_f(last_h)),
+                [(c["k"], c["v"]) for c in caches])
+
+    def decode_step(self, token: torch.Tensor, pos: int,
+                    caches: Sequence[Cache]
+                    ) -> Tuple[torch.Tensor, List[Cache]]:
+        """One step (transformer.py:830): token [B] ids at position `pos`
+        -> (logits [B, V], new caches). The query attends over the whole
+        cache under the mask arange(Tmax) <= pos, which takes `mha`'s
+        dense path (as JAX's decode did on the TPU). The encoding row and
+        the cache write are clamped to their ranges, as JAX's
+        dynamic_slice and dynamic_update_slice clamp them."""
+        pos = int(pos)
+        x = self.embed(token.long()[:, None]) * math.sqrt(self.model_dim)
+        x = x + self.pe[min(max(pos, 0), self.max_len - 1)].to(x.dtype)
+        tmax = caches[0]["k"].shape[1]
+        smask = (torch.arange(tmax, device=x.device) <= pos)[None, None,
+                                                              None]
+        new_caches = []
+        for blk, cache in zip(self.blocks, caches):
+            x, nc = blk(x, mask=smask, cache=cache, decode_pos=pos)
+            new_caches.append(nc)
+        return self._head(self.ln_f(x))[:, 0], new_caches
+
+    @torch.no_grad()
+    def generate(self, prompt: torch.Tensor, num_steps: int,
+                 generator: Optional[torch.Generator] = None,
+                 temperature: float = 0.0) -> torch.Tensor:
+        """KV-cached continuation (transformer.py:846): [B, T0] prompt ->
+        [B, T0 + num_steps] int64 on the model's device. One `prefill`
+        pass fills the caches, then one `decode_step` a token, in eval
+        mode. Greedy at temperature 0; otherwise each token is drawn
+        from softmax(logits / temperature) by a generator seeded from
+        (`generator`'s seed, the position of the query), as JAX folds the
+        position into its key: the same seed gives the same tokens."""
+        b, t0 = prompt.shape
+        if t0 < 1:
+            raise ValueError("generate needs a non-empty prompt")
+        total = t0 + num_steps
+        if total > self.max_len:
+            raise ValueError(f"prompt {t0} + steps {num_steps} exceeds "
+                             f"max_len {self.max_len}")
+        if temperature > 0.0 and generator is None:
+            raise ValueError("sampling (temperature > 0) needs a generator")
+        prompt = prompt.to(self.device, torch.long)
+        if num_steps == 0:
+            return prompt
+
+        def sample(logits: torch.Tensor, i: int) -> torch.Tensor:
+            # i = the position of the query that produced these logits
+            if temperature > 0.0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                return torch.multinomial(
+                    probs, 1, generator=fold_in(generator.initial_seed(), i,
+                                                logits.device))[:, 0]
+            return torch.argmax(logits, dim=-1)
+
+        was_training = self.training
+        self.eval()
+        try:
+            logits, caches = self.prefill(prompt, self.init_cache(b, total))
+            tokens = torch.zeros((b, total), dtype=torch.long,
+                                 device=self.device)
+            tokens[:, :t0] = prompt
+            tokens[:, t0] = sample(logits, t0 - 1)
+            for i in range(t0, total - 1):
+                logits, caches = self.decode_step(tokens[:, i], i, caches)
+                tokens[:, i + 1] = sample(logits, i)
+        finally:
+            self.train(was_training)
+        return tokens
 
     def ragged_step_paged(self, tokens: torch.Tensor, positions: torch.Tensor,
                           pools: Pools, block_tables: torch.Tensor,

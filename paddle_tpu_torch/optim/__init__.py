@@ -2,6 +2,12 @@
 counterpart)."""
 
 from paddle_tpu_torch.optim import lr_schedules
-from paddle_tpu_torch.optim.optimizer import SGD, Adam, AdamW, Optimizer
+from paddle_tpu_torch.optim.optimizer import (
+    SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, DecayedAdagrad, Ftrl, Lamb,
+    LarsMomentum, ModelAverage, Momentum, Optimizer, ProximalAdagrad,
+    ProximalGD, RMSProp)
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD", "lr_schedules"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "AdamW",
+           "DecayedAdagrad", "Ftrl", "Lamb", "LarsMomentum", "ModelAverage",
+           "Momentum", "Optimizer", "ProximalAdagrad", "ProximalGD",
+           "RMSProp", "SGD", "lr_schedules"]

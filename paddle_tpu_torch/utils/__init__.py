@@ -1,1 +1,6 @@
-"""Host-side utilities of the port (event streams)."""
+"""Host-side utilities of the port: event streams, the flag registry,
+tree keys and seeded generators."""
+
+from paddle_tpu_torch.utils.flags import FLAGS, get_flags, set_flags
+
+__all__ = ["FLAGS", "get_flags", "set_flags"]
