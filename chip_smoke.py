@@ -29,6 +29,14 @@ user calls:
   same weights with the in-device int8 KV tier on: the shared prefix
   is quantized while fillers run, and the second wave reads it in
   place — the mixed ragged kernel;
+- `engine_spec` (f32 and bf16): a `ServeEngine` with `spec_k=4` serving
+  greedy requests whose prompts repeat a span, and two n-best groups —
+  kernel 1 over decode windows of 1 + k tokens — held against a plain
+  engine's streams, solo runs of each fork's seed and the eager step;
+- `engine_tier` (f32): a pool too small for its traffic with the host
+  KV tier behind it (fp, int8, and behind the in-device int8 tier), so
+  preempted and recycled blocks demote and revive — held against a
+  roomy engine's streams, with a spill / load_spill round trip;
 - `split_path`: `CausalLM.prefill_chunk_paged` then
   `decode_step_paged` — the paged-decode kernel (the ragged kernels'
   split and combine kernels over one decode tile a sequence).
@@ -72,12 +80,13 @@ import torch
 
 from paddle_tpu_torch import optim
 from paddle_tpu_torch.core import Trainer
-from paddle_tpu_torch.engine import ServeEngine
+from paddle_tpu_torch.engine import HostKVTier, ServeEngine
 from paddle_tpu_torch.engine import engine as engine_mod
 from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.models import CausalLM, load_jax_params
+from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.ops import linear_cross_entropy
 from paddle_tpu_torch.optim import Adam
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
@@ -1176,6 +1185,336 @@ def phase_split_path(cfg: dict, tree: dict, device: torch.device,
     return out
 
 
+# -- speculative decoding, n-best forks and the host KV tier --------------
+
+def _engine_kw(cfg: dict, device: torch.device, **kw) -> dict:
+    """An engine's options at the config's width, with a registry of its
+    own, so that its counters count its traffic alone."""
+    return dict(dict(block_size=cfg["block_size"],
+                     num_blocks=cfg["num_blocks"],
+                     max_batch_size=cfg["max_batch"],
+                     max_prefill_tokens=cfg["max_prefill"],
+                     tile_q=cfg["tile_q"], device=device,
+                     registry=MetricsRegistry()), **kw)
+
+
+@contextlib.contextmanager
+def host_ms(acc: Dict[str, float], **targets):
+    """While open, every call of each target (name=(object, attribute))
+    adds its host ms to acc[name]; the attributes are put back after."""
+    saved = {name: getattr(obj, attr) for name, (obj, attr)
+             in targets.items()}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc[name] = (acc.get(name, 0.0)
+                             + (time.perf_counter() - t0) * 1e3)
+        return call
+
+    for name, (obj, attr) in targets.items():
+        setattr(obj, attr, timed(name, saved[name]))
+    try:
+        yield acc
+    finally:
+        for name, (obj, attr) in targets.items():
+            setattr(obj, attr, saved[name])
+
+
+def _drain(engine, greedy: List[List[int]], groups, new: int,
+           gaps: Optional[dict] = None) -> Tuple[list, list, float, dict]:
+    """Serve the greedy prompts and the n-best groups (prompt, seed) on
+    `engine`; returns (greedy requests, group candidate lists, wall s,
+    host ms by part: the step program's runs (operand copy, replay,
+    logits copy, synchronisation), host sampling, drafting). With
+    `gaps`, every sampled token records its logits' top-2 gap."""
+    sc_n = groups[0][2] if groups else 1
+    targets = {"program_run": (engine.step_graph, "run"),
+               "sample": (engine_mod, "_sample")}
+    if engine.drafter is not None:
+        targets["draft"] = (engine.drafter, "propose")
+    ctx = recorded_engine_gaps(gaps) if gaps is not None \
+        else host_ms({}, **targets)
+    cuda = engine.device.type == "cuda"
+    with ctx as parts:
+        t0 = time.perf_counter()
+        reqs = [engine.add_request(p, max_new_tokens=new) for p in greedy]
+        heads = [engine.add_request(p, max_new_tokens=new, temperature=0.8,
+                                    seed=seed, n=sc_n)
+                 for p, seed, _ in groups]
+        engine.run()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cands = [[h] + sorted(h.forks, key=lambda f: f.cand_index)
+             for h in heads]
+    return reqs, cands, wall, (parts if gaps is None else {})
+
+
+def _pad_step_ms(engine, iters: int) -> float:
+    """Host ms of one pad-only program step: the operand copy, the
+    replay, the logits' copy to the host and the synchronisation."""
+    g = engine.step_graph
+    g.clear()
+    g.run()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        g.run()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_engine_spec(cfg: dict, tree: dict, device: torch.device,
+                      card: dict) -> dict:
+    """Speculative decoding and n-best forks at full width, f32 then
+    bf16: `max_batch` greedy requests whose prompts repeat a seeded span
+    (the prompt-lookup drafter's case) and two n-best groups at
+    temperature 0.8, through a `spec_k` engine and a plain one of the
+    same options. Checks (f32): the greedy streams equal the plain
+    engine's up to the first position where either engine's top-2
+    logits lie within 1e-4 (the head GEMM runs on B x spec_len rows, not
+    B, so an ulp may move), and such splits are counted; each fork's
+    stream equals a solo run of its seed on a speculating engine (same
+    shapes, so bit for bit; both dtypes); drafts were made; one graph
+    per engine; and on another speculating engine, the graph's logits
+    equal the eager step's after every step with drafts in the batch.
+    Kernel 1 launches once per layer per step of the counted spec run."""
+    cuda = device.type == "cuda"
+    sc = cfg["spec"]
+    rng = np.random.default_rng(SEED + 30)
+    vocab, new, k = cfg["vocab"], sc["new"], sc["k"]
+    spans = [rng.integers(0, vocab, sc["span"]).tolist()
+             for _ in range(cfg["max_batch"] + sc["groups"])]
+    prompts = [(s * (-(-sc["prompt"] // len(s))))[:sc["prompt"]]
+               for s in spans]
+    greedy = prompts[:cfg["max_batch"]]
+    groups = [(p, SEED + 100 * i, sc["n"])
+              for i, p in enumerate(prompts[cfg["max_batch"]:])]
+    layers = cfg["lm"]["num_layers"]
+    out, launches = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        model = _lm(cfg, tree, dtype, device)
+        runs = {}
+        for spec_k in (0, k):
+            kw = _engine_kw(cfg, device, spec_k=spec_k)
+            ServeEngine(model, **kw).generate([greedy[0]], max_new_tokens=4)
+            engine = ServeEngine(model, **kw)
+            if spec_k and dtype == torch.float32:
+                _reset_launches()                   # the path's counts
+            reqs, cands, wall, parts = _drain(engine, greedy, groups, new)
+            if spec_k and dtype == torch.float32:
+                launches = _expect_launches("ragged_paged_attention",
+                                            engine.steps, layers, cuda)
+            graph = check_one_program(engine, cuda)
+            engine.cache.assert_quiesced()
+            gaps: Dict[Tuple[int, int], float] = {}
+            again = ServeEngine(model, **kw)
+            rreqs, rcands, _, _ = _drain(again, greedy, groups, new, gaps)
+            check([r.generated for r in rreqs] == [r.generated for r in reqs]
+                  and [[c.generated for c in g] for g in rcands]
+                  == [[c.generated for c in g] for g in cands],
+                  f"{name} spec_k {spec_k}: two runs differ")
+            tokens = new * (len(greedy) + sum(len(g) for g in cands))
+            runs[spec_k] = dict(
+                reqs=rreqs, cands=cands, gaps=gaps, engine=engine,
+                steps=engine.steps, wall_s=wall, tokens_per_s=tokens / wall,
+                host_ms=parts,
+                pad_step_ms=_pad_step_ms(engine, 20) if cuda else None,
+                graph=graph,
+                drafted=engine.obs.get(
+                    "ptpu_spec_drafted_tokens_total").value,
+                accepted=engine.obs.get(
+                    "ptpu_spec_accepted_tokens_total").value)
+        plain, spec = runs[0], runs[k]
+        rows = []
+        for rp, rs in zip(plain["reqs"], spec["reqs"]):
+            plen = len(rp.prompt)
+            rows.append(_stream_split(
+                rp.generated, rs.generated,
+                [plain["gaps"][(rp.req_id, plen + i)] for i in range(new)],
+                [spec["gaps"][(rs.req_id, plen + i)] for i in range(new)],
+                1e-4))
+        fork_ok = []
+        for (prompt, seed, _), cands in zip(groups, spec["cands"]):
+            for c in cands:
+                alone = ServeEngine(model, **_engine_kw(
+                    cfg, device, spec_k=k)).generate(
+                        [prompt], max_new_tokens=new, temperature=0.8,
+                        seed=seed + c.cand_index)[0]
+                fork_ok.append(alone == c.generated)
+        check(all(fork_ok), f"{name}: fork streams != solo runs {fork_ok}")
+        check(spec["drafted"] > 0, f"{name}: no draft was made")
+        splits = [r for r in rows if r["agreed"] < new]
+        if dtype == torch.float32:
+            check(all(r["ok"] for r in rows),
+                  f"spec vs plain greedy streams split before a near tie: "
+                  f"{splits}")
+        # the graph against the eager step, drafts in the batch
+        eng = ServeEngine(model, **_engine_kw(cfg, device, spec_k=k))
+        for p in greedy:
+            eng.add_request(p, max_new_tokens=sc["eager_new"])
+        unequal = draft_steps = 0
+        while eng.step():
+            got = eng.step_graph.logits.clone()
+            check(bool(torch.isfinite(got).all()), "non-finite logits")
+            unequal += not torch.equal(got, eng.step_graph.eager())
+            idx = eng.step_graph.operands["last_idx"]
+            draft_steps += bool((idx[:, 1:] != idx[:, :1]).any())
+        check(unequal == 0 and draft_steps > 0,
+              f"{name}: {unequal} graph steps != eager ({draft_steps} with "
+              "drafts)")
+        res = {"spec_k": k, "requests": len(greedy),
+               "groups": [len(g) for g in spec["cands"]],
+               "new_tokens": new, "drafted": spec["drafted"],
+               "accepted": spec["accepted"],
+               "accept_ratio": spec["accepted"] / max(spec["drafted"], 1),
+               "steps": spec["steps"], "plain_steps": plain["steps"],
+               "tokens_per_s": spec["tokens_per_s"],
+               "plain_tokens_per_s": plain["tokens_per_s"],
+               "wall_s": spec["wall_s"], "plain_wall_s": plain["wall_s"],
+               "host_ms": spec["host_ms"],
+               "plain_host_ms": plain["host_ms"],
+               "pad_step_ms": spec["pad_step_ms"],
+               "plain_pad_step_ms": plain["pad_step_ms"],
+               "logits_bytes_per_step": 4 * cfg["max_batch"] * (k + 1)
+               * vocab,
+               "plain_logits_bytes_per_step": 4 * cfg["max_batch"] * vocab,
+               "greedy_tokens_agreed": sum(r["agreed"] for r in rows),
+               "greedy_tokens": new * len(rows), "splits": splits,
+               "forks_equal_solo": len(fork_ok),
+               "graph_vs_eager_steps": eng.steps,
+               "graph_vs_eager_draft_steps": draft_steps,
+               **spec["graph"], "device": card["kind"],
+               "nvidia_smi": card["smi"]}
+        if dtype == torch.float32:
+            res["kernel_launches"] = launches
+        emit({"phase": "engine_spec", "dtype": name, **res})
+        out[name] = res
+        del model, runs, eng
+        gc.collect()
+    return out
+
+
+def _tier_entries(tier) -> list:
+    """A tier's entries in LRU order, every payload as raw bytes."""
+    return [(key, ent.nbytes, [tuple(p.tobytes() if isinstance(p, np.ndarray)
+                                     else p for p in blob)
+                               for blob in ent.blobs])
+            for key, ent in tier._entries.items()]
+
+
+def phase_engine_tier(cfg: dict, tree: dict, device: torch.device,
+                      card: dict) -> dict:
+    """The host KV tier at full width, f32: `max_batch` prompts on a pool
+    too small for them (decode growth preempts, and the victims' blocks
+    demote to the tier), filler waves that recycle the cached-free
+    blocks (evictions demote), and the first wave's prompts again, which
+    revive from the tier. Runs: an fp tier, whose streams must equal a
+    roomy engine's exactly; an int8 tier, which must revive and
+    complete; and an fp tier behind the in-device int8 tier
+    (kv_compress_blocks), whose compressed entries spill to the host.
+    Each run keeps one graph; a spill / load_spill round trip in a
+    temporary directory gives the same entries. The revival writes are
+    timed on the host clock (synchronised), lane batch by lane batch."""
+    cuda = device.type == "cuda"
+    tc = cfg["tier"]
+    rng = np.random.default_rng(SEED + 40)
+    vocab, new = cfg["vocab"], tc["new"]
+    wave = [rng.integers(0, vocab, tc["prompt"]).tolist()
+            for _ in range(cfg["max_batch"])]
+    fillers = [[rng.integers(0, vocab, tc["prompt"]).tolist()
+                for _ in range(cfg["max_batch"])]
+               for _ in range(tc["filler_waves"])]
+    layers = cfg["lm"]["num_layers"]
+    model = _lm(cfg, tree, torch.float32, device)
+
+    def serve(**kw):
+        eng = ServeEngine(model, **_engine_kw(cfg, device, **kw))
+        lanes: List[float] = []
+        if eng.host_tier is not None:
+            write = eng._write_revivals
+
+            def timed(batch):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                write(batch)
+                if cuda:
+                    torch.cuda.synchronize()
+                lanes.append((time.perf_counter() - t0) * 1e3)
+            eng._write_revivals = timed
+        t0 = time.perf_counter()
+        streams = eng.generate(wave, max_new_tokens=new)
+        for f in fillers:
+            eng.generate(f, max_new_tokens=4)
+        streams += eng.generate(wave, max_new_tokens=new)
+        if cuda:
+            torch.cuda.synchronize()
+        return eng, streams, lanes, time.perf_counter() - t0
+
+    roomy, want, _, roomy_s = serve(num_blocks=tc["roomy_blocks"])
+    runs = {}
+    for name, kw, kernel in (
+            ("fp", dict(), "ragged_paged_attention"),
+            ("int8", dict(kv_tier_int8=True), "ragged_paged_attention"),
+            ("fp_behind_int8", dict(kv_compress_blocks=tc["compress_blocks"]),
+             "ragged_paged_attention_mixed")):
+        _reset_launches()                           # the path's counts
+        eng, got, lanes, wall = serve(num_blocks=tc["num_blocks"],
+                                      host_tier_bytes=tc["bytes"], **kw)
+        launches = _expect_launches(kernel, eng.steps, layers, cuda)
+        st = eng.stats()
+        preempted = int(eng.obs.get("ptpu_sched_preemptions_total").value)
+        demoted = eng.obs.get("ptpu_kv_tier_demoted_blocks_total")
+        check(all(len(s) == new for s in got), f"{name}: a request did not "
+                                               "complete")
+        check(st["tier_revivals"] > 0, f"{name}: nothing revived: {st}")
+        graph = check_one_program(eng, cuda)
+        eng.cache.assert_quiesced()
+        with tempfile.TemporaryDirectory() as d:
+            n = eng.host_tier.spill(d)
+            back = HostKVTier(tc["bytes"], int8=eng.host_tier.int8,
+                              registry=MetricsRegistry())
+            check(back.load_spill(d) == n > 0
+                  and _tier_entries(back) == _tier_entries(eng.host_tier),
+                  f"{name}: spill / load_spill changed the entries")
+        res = {"steps": eng.steps, "wall_s": wall,
+               "preemptions": preempted,
+               "demoted": {r: demoted.labels(reason=r).value
+                           for r in ("evict", "preempt")},
+               "tier_revivals": st["tier_revivals"],
+               "tier_hit_tokens": st["tier_hit_tokens"],
+               "tier_entries": st["tier_entries"],
+               "tier_bytes": st["tier_bytes"],
+               "revival_lane_batches": len(lanes),
+               "revival_ms": lanes, "revival_ms_total": sum(lanes),
+               "spill_entries": n, "kernel_launches": launches, **graph}
+        if name == "fp":
+            same = got == want
+            res["streams_equal_roomy"] = same
+            check(same, "fp tier streams != the roomy engine's")
+            check(preempted > 0 and res["demoted"]["preempt"] > 0,
+                  f"no preempted sequence demoted: {res}")
+        if name == "fp_behind_int8":
+            res["compress_spills"] = st["compress_spills"]
+            check(st["compress_spills"] > 0, "no compressed entry spilled")
+        runs[name] = res
+        del eng
+        gc.collect()
+    out = {"requests": 2 * len(wave), "prompt": tc["prompt"],
+           "new_tokens": new, "num_blocks": tc["num_blocks"],
+           "roomy_blocks": tc["roomy_blocks"], "roomy_steps": roomy.steps,
+           "roomy_wall_s": roomy_s, "runs": runs, "dtype": "float32",
+           "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "engine_tier", **out})
+    del model, roomy
+    gc.collect()
+    return out
+
+
 # -- training: the flash kernels ------------------------------------------
 
 def _flash_inputs(b: int, t: int, h: int, hkv: int, d: int,
@@ -2130,7 +2469,17 @@ def full_config() -> dict:
                  paged_lens=[300 + 30 * i for i in range(7)] + [512]),
         # resume: the train phase's batch, bf16 Adam, saved after 3 of 6
         resume=dict(steps=6, split=3, batch=4),
-        optim_shapes=[(512, 512), (2048,), (8, 64, 64)])
+        optim_shapes=[(512, 512), (2048,), (8, 64, 64)],
+        # engine_spec: 8 greedy prompts of 256 repeating a 48-token span
+        # and two n=4 groups, 32 new tokens each, spec_k 4
+        spec=dict(k=4, span=48, prompt=256, new=32, groups=2, n=4,
+                  eager_new=8),
+        # engine_tier: 8 prompts of 200 (13 blocks each) on 109 usable
+        # blocks, so decode growth past position 208 preempts decoding
+        # sequences; two filler waves recycle the cached-free blocks; a
+        # 256 MB host tier holds them all
+        tier=dict(prompt=200, new=32, num_blocks=110, roomy_blocks=1024,
+                  bytes=256 << 20, compress_blocks=32, filler_waves=2))
 
 
 def tiny_config() -> dict:
@@ -2154,7 +2503,11 @@ def tiny_config() -> dict:
         tvp_batch=2,
         gen=dict(batch=2, lens=(12, 20), new=6, paged_lens=[12, 16, 20]),
         resume=dict(steps=4, split=2, batch=2),
-        optim_shapes=[(4, 4), (6,)])
+        optim_shapes=[(4, 4), (6,)],
+        spec=dict(k=4, span=12, prompt=40, new=8, groups=2, n=2,
+                  eager_new=4),
+        tier=dict(prompt=40, new=20, num_blocks=14, roomy_blocks=64,
+                  bytes=16 << 20, compress_blocks=4, filler_waves=2))
 
 
 def main(argv=None) -> int:
@@ -2190,8 +2543,10 @@ def main(argv=None) -> int:
     phase_graph_vs_eager(cfg, tree, device, card)
     paths = {"ragged_paged_attention": phase_engine(cfg, tree, device, card),
              "ragged_paged_attention_mixed": phase_engine_int8(
-                 cfg, tree, device, card),
-             "paged_attention": phase_split_path(cfg, tree, device, card)}
+                 cfg, tree, device, card)}
+    spec = phase_engine_spec(cfg, tree, device, card)
+    phase_engine_tier(cfg, tree, device, card)
+    paths["paged_attention"] = phase_split_path(cfg, tree, device, card)
     train = phase_train(cfg, tree, device, card)
     paths.update(dict.fromkeys(FLASH_KERNELS, train))
     phase_train_vs_plain(cfg, tree, device)
@@ -2211,6 +2566,9 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tensor_cores": tensor_cores.get(name, False)})
+        if name == "ragged_paged_attention":
+            rows[-1]["launches_spec"] = \
+                spec["float32"]["kernel_launches"][name]
         if name == "flash_fwd":
             rows[-1]["launches_generate"] = {
                 dt: r["kernel_launches"][name] for dt, r in generate.items()}

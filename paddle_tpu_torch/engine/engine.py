@@ -11,7 +11,8 @@ numpy, streams them to per-request callbacks, and emits structured
 One fixed shape, one program — the JAX engine's one-compile rule: every
 step runs at a FIXED shape. The step's rows are packed into a single
 [T] token array, T = round_up(chunk_budget, tile_q) + max_batch_size *
-tile_q, with each row's tokens in a tile_q-aligned segment and per-tile
+round_up(1 + spec_k, tile_q), with each row's tokens in a tile_q-aligned
+segment and per-tile
 metadata mapping tiles back to rows. Row membership, chunk boundaries
 and prefix-cache hits only change int32 operand VALUES, never shapes.
 The operands are staged in fixed buffers (step_graph.py), and on the
@@ -41,13 +42,36 @@ fixed-lane `index_copy_` scatters before the step. With the tier on,
 EVERY step passes the int8 pools, so the step keeps one shape under
 fp -> int8 -> fp churn.
 
+Three features ride that determinism with no new program:
+
+- SPECULATIVE DECODING (spec_k > 0, engine/draft.py): a model-free
+  prompt-lookup drafter proposes up to k tokens per decode-ready
+  sequence; the scheduler widens that row's window to 1 + k tokens (the
+  multi-token shape a prefill chunk has) so the one step scores all
+  positions, and last_idx gathers spec_len = 1 + spec_k hidden states
+  a row. Verification accepts the longest draft prefix where each
+  draft token equals what _sample produces at its position anyway —
+  exact under greedy AND temperature. Rejected positions roll back by
+  not advancing the cache: their stale k/v past the sequence's length
+  is reserved again and overwritten by later steps.
+- PARALLEL SAMPLING (add_request(n=...)): a finished prefill forks into
+  n candidates sharing every prompt block (refcount bump + COW), each
+  sampling under seed + i from the same logits row; candidate streams
+  equal solo runs with those seeds.
+- HOST KV TIER (host_tier_bytes > 0, engine/kvtier.py): cached-free
+  blocks the pool recycles, preempted sequences' committed blocks and
+  evicted int8 entries demote to host RAM (int8-quantized with
+  kv_tier_int8); a prompt that walks into the tier revives those
+  blocks by fixed-lane in-place writes before the step, instead of
+  re-prefilling them. `tier_spill_dir` warm-starts the tier from a
+  spill; `demote_finished` demotes every finished request's blocks.
+
 `ServeEngine.from_saved_model(dir)` serves a model exported by the JAX
 package (`save_inference_model(..., serve_meta=serve_metadata(model))`),
 reading it without JAX (io/checkpoint.py).
 
-Not ported yet (ROADMAP.md): tensor-parallel serving, the host-RAM KV
-tier, speculative decoding and n-best forks, and the fleet prefix
-directory.
+Not ported yet (ROADMAP.md): tensor-parallel serving (`tp_size`), and
+the serve layer's engine methods (`kv_prefix_directory`, `debug_state`).
 """
 
 from __future__ import annotations
@@ -61,8 +85,11 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.engine.draft import NgramDrafter
+from paddle_tpu_torch.engine.kvtier import HostKVTier, to_torch
 from paddle_tpu_torch.engine.paged_cache import PagedKVCache
-from paddle_tpu_torch.engine.scheduler import Request, Scheduler, StepRow
+from paddle_tpu_torch.engine.scheduler import (RUNNING, Request, Scheduler,
+                                               StepRow)
 from paddle_tpu_torch.engine.step_graph import StepGraph
 from paddle_tpu_torch.io.checkpoint import load_checkpoint
 from paddle_tpu_torch.models import CausalLM, load_jax_params
@@ -73,7 +100,7 @@ from paddle_tpu_torch.quant.int8_compute import (dequantize_block,
 from paddle_tpu_torch.utils.log import serve_event
 
 _COPY_LANES = 8     # COW copies flushed through one fixed-shape call
-_TIER_LANES = 8     # int8-tier compress/promote lanes per flush call
+_TIER_LANES = 8     # tier lanes (compress, promote, host revival) a call
 
 
 def serve_metadata(model) -> dict:
@@ -137,8 +164,14 @@ class ServeEngine:
     `kv_compress_blocks` > 0 sizes the in-device int8 tier (0 is the
     plain engine, bit for bit); `kv_promote_hits` 0 reads compressed
     hits in place, 1 always promotes them to fp, N > 1 promotes a
-    prefix once it has been hit N times. `device` defaults to the CUDA
-    card and must be the model's device."""
+    prefix once it has been hit N times. `spec_k` > 0 speculates up to
+    spec_k drafted tokens a decode row (`drafter`, by default an
+    NgramDrafter(k=spec_k); a drafter's k widens spec_k to fit).
+    `host_tier_bytes` > 0 hangs a host KV tier of that byte budget
+    behind the pool (`kv_tier_int8` quantizes it, `tier_spill_dir`
+    warm-starts it from a spill, `demote_finished` demotes finished
+    requests into it). `device` defaults to the CUDA card and must be
+    the model's device."""
 
     def __init__(self, model, max_batch_size: int = 4,
                  block_size: int = 16, num_blocks: int = 256,
@@ -146,10 +179,16 @@ class ServeEngine:
                  max_prefill_tokens: int = 512,
                  tile_q: int = 8,
                  enable_prefix_cache: bool = True,
+                 spec_k: int = 0,
+                 drafter=None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[RequestTracer] = None,
+                 host_tier_bytes: int = 0,
+                 kv_tier_int8: bool = False,
+                 tier_spill_dir: Optional[str] = None,
                  kv_compress_blocks: int = 0,
                  kv_promote_hits: int = 0,
+                 demote_finished: bool = False,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if self.device != model.device:
@@ -175,24 +214,63 @@ class ServeEngine:
                         clamped_to=self.max_seq_len)
             max_prefill_tokens = self.max_seq_len
         self.tile_q = tile_q
+        # speculative decoding: a decode row becomes a window of up to
+        # 1 + spec_k tokens, and last_idx gathers spec_len positions a
+        # row; both are fixed here, so the step keeps one shape
+        if spec_k < 0:
+            raise ValueError(f"spec_k {spec_k} < 0")
+        if drafter is None and spec_k > 0:
+            drafter = NgramDrafter(k=spec_k)
+        if drafter is not None:
+            # the step's shape must fit the drafter's longest window
+            spec_k = max(spec_k, drafter.k)
+        self.spec_k = spec_k
+        self.spec_len = spec_k + 1          # logit positions a row
+        self.drafter = drafter
         # flat step sizing: every row's segment is tile-aligned, so the
         # worst case is max_batch_size rows each wasting tile_q - 1
-        # slots on top of the chunk budget
-        self.flat_tokens = (-(-max_prefill_tokens // tile_q) * tile_q
-                            + max_batch_size * tile_q)
+        # slots on top of the chunk budget (decode windows grow to
+        # 1 + spec_k tokens under speculation)
+        self.flat_tokens = (
+            -(-max_prefill_tokens // tile_q) * tile_q
+            + max_batch_size * (-(-self.spec_len // tile_q) * tile_q))
         self.num_tiles = self.flat_tokens // tile_q
+        # the host KV tier: cached-free evictions, preemptions (and with
+        # demote_finished, finishes) demote block KV to host arrays, and
+        # admission revives them with in-place lane writes
+        self.host_tier = (
+            HostKVTier(host_tier_bytes, int8=kv_tier_int8,
+                       registry=self.obs)
+            if host_tier_bytes > 0 else None)
+        self.demote_finished = bool(demote_finished)
+        self.tier_spill_dir = tier_spill_dir
+        if self.host_tier is not None and tier_spill_dir:
+            # warm restart from an earlier process's spill; a missing,
+            # partial or foreign spill loads nothing (a cold start)
+            loaded = self.host_tier.load_spill(tier_spill_dir)
+            if loaded:
+                serve_event("tier_warm_start", dir=tier_spill_dir,
+                            blocks=loaded)
         self.cache = PagedKVCache(
             num_layers=len(model.blocks), num_blocks=num_blocks,
             block_size=block_size, num_kv_heads=attn.num_kv_heads,
             head_dim=attn.head_dim, dtype=model.dtype, device=self.device,
             enable_prefix_cache=enable_prefix_cache, registry=self.obs,
-            compress_blocks=kv_compress_blocks,
+            host_tier=self.host_tier, compress_blocks=kv_compress_blocks,
             promote_hits=kv_promote_hits)
+        if self.host_tier is not None:
+            # prime the tier's eager paths — the demote gather and the
+            # revival lane write (pad lanes only: zeros into scratch
+            # block 0) — so the first real demotion or revival does not
+            # pay their first-call cost mid-request
+            self.cache._block_layers(0)
+            self._write_revivals([])
         self.max_blocks_per_seq = self.cache.blocks_for(self.max_seq_len)
         self.scheduler = Scheduler(
             self.cache, max_batch_size=max_batch_size,
             max_prefill_tokens=max_prefill_tokens,
-            max_seq_len=self.max_seq_len - 1)  # leave room for >=1 new token
+            max_seq_len=self.max_seq_len - 1,  # leave room for >=1 new token
+            drafter=self.drafter)
         self.scheduler.on_preempt = self._on_preempt
         self.scheduler.on_admit = self._on_admit
         self.finished: Dict[int, Request] = {}
@@ -206,7 +284,7 @@ class ServeEngine:
         # CUDA graph, captured here; every step replays it
         self.step_graph = StepGraph(model, self.cache, self.flat_tokens,
                                     tile_q, max_batch_size,
-                                    self.max_blocks_per_seq)
+                                    self.max_blocks_per_seq, self.spec_len)
         self._register_metrics()
 
     # -- construction from an exported artifact ---------------------------
@@ -256,7 +334,7 @@ class ServeEngine:
             "ptpu_serve_e2e_ms", "Enqueue to finish (ms)")
         self._m_step = m.histogram(
             "ptpu_serve_step_ms", "Engine step wall time (ms)",
-            labelnames=("kind",))        # kind=decode|prefill|mixed
+            labelnames=("kind",))        # kind=decode|prefill|mixed|spec
         self._m_reqs = m.counter(
             "ptpu_serve_requests_total", "Finished requests",
             labelnames=("reason",))      # reason=eos|length|cancelled
@@ -298,6 +376,20 @@ class ServeEngine:
             "prefill-bearing step")
         self._m_preempts = m.counter(
             "ptpu_sched_preemptions_total", "Recompute preemptions")
+        # speculative decoding: acceptance telemetry (the step latency
+        # rides ptpu_serve_step_ms{kind="spec"} beside "decode")
+        self._m_spec_drafted = m.counter(
+            "ptpu_spec_drafted_tokens_total",
+            "Draft tokens proposed for batched verification")
+        self._m_spec_accepted = m.counter(
+            "ptpu_spec_accepted_tokens_total",
+            "Draft tokens accepted (emitted beyond the base token)")
+        self._m_spec_rejected = m.counter(
+            "ptpu_spec_rejected_tokens_total",
+            "Draft tokens rejected (their written KV rolled back)")
+        self._m_spec_ratio = m.histogram(
+            "ptpu_spec_acceptance_ratio",
+            "Per-speculative-row accepted/drafted ratio")
 
     def _on_admit(self, req: Request) -> None:
         """Scheduler hook: a request left the wait queue. Queue-wait is
@@ -322,10 +414,22 @@ class ServeEngine:
                     temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                     eos_id: Optional[int] = None,
                     callback: Optional[Callable[[int], None]] = None,
-                    deadline_ms: Optional[float] = None) -> Request:
-        """Enqueue one completion."""
+                    deadline_ms: Optional[float] = None,
+                    n: int = 1,
+                    fork_callback: Optional[Callable] = None) -> Request:
+        """Enqueue one completion. `n > 1` is parallel sampling: when
+        this request's prefill finishes, the engine forks n - 1 sibling
+        candidates off its prompt blocks (refcount bump, no copy), each
+        sampling with seed + i, and all n decode together. The returned
+        primary is candidate 0; its `forks` list holds the siblings.
+        fork_callback(i) returns sibling i's token callback (or None for
+        a silent candidate)."""
         if not prompt:
             raise ValueError("empty prompt")
+        if not 1 <= n <= self.max_batch_size:
+            raise ValueError(
+                f"n {n} not in [1, max_batch_size={self.max_batch_size}]: "
+                "every candidate needs a batch slot to decode")
         if not all(-2 ** 31 <= t < 2 ** 31 for t in prompt):
             raise ValueError("prompt ids must fit int32, the step's "
                              "operand type")
@@ -339,7 +443,8 @@ class ServeEngine:
                 f"{self.cache.block_size}); raise num_blocks")
         req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
                       temperature=temperature, top_k=top_k, seed=seed,
-                      eos_id=eos_id, callback=callback)
+                      eos_id=eos_id, callback=callback,
+                      n_candidates=n, fork_callback=fork_callback)
         req.enqueue_time = time.monotonic()
         if deadline_ms is not None:
             req.deadline = req.enqueue_time + deadline_ms / 1e3
@@ -370,6 +475,15 @@ class ServeEngine:
                     occupancy=round(self.cache.occupancy(), 4))
         return True
 
+    def cancel_group(self, req: Request, reason: str = "cancelled") -> int:
+        """Cancel a parallel-sampling group: the primary and every fork
+        it spawned, so all n candidates drop their block references
+        (the shared prompt's refcounts return to baseline). Safe for
+        n == 1 and before the fork happened (the siblings are then never
+        created). Returns how many candidates were cancelled."""
+        return sum(1 for r in [req] + req.forks
+                   if self.cancel(r, reason))
+
     # -- serve loop --------------------------------------------------------
     def step(self) -> bool:
         """Advance one scheduler plan (one mixed batch through the
@@ -385,10 +499,14 @@ class ServeEngine:
         self.cache.step_now = self.steps
         if self.cache.compress_enabled:
             self.cache.compress_cold()
-        n_chunks, n_decodes, chunk_tokens = self._step_mixed(rows)
+        n_chunks, n_decodes, chunk_tokens, n_drafted = \
+            self._step_mixed(rows)
         self.peak_occupancy = max(self.peak_occupancy,
                                   self.cache.occupancy())
-        kind = ("mixed" if n_chunks and n_decodes
+        # "spec" wins over mixed/decode, so the latency of steps that
+        # speculate is separable from plain decode's
+        kind = ("spec" if n_drafted
+                else "mixed" if n_chunks and n_decodes
                 else "prefill" if n_chunks else "decode")
         self._m_step.labels(kind=kind).observe(
             (time.perf_counter() - t0) * 1e3)
@@ -473,11 +591,43 @@ class ServeEngine:
                     qpool.index_copy_(0, dst, q8)
                     scales.index_copy_(0, dst, sc)
 
+    def _flush_tier_loads(self) -> None:
+        """Write staged host-tier revivals into the pools — after
+        _flush_promote and BEFORE _flush_cow (a just-revived block can be
+        a same-plan COW src) and the step that reads them — in batches
+        of _TIER_LANES lanes."""
+        loads = self.cache.drain_host_loads()
+        for i in range(0, len(loads), _TIER_LANES):
+            self._write_revivals(loads[i:i + _TIER_LANES])
+
+    def _write_revivals(self, batch) -> None:
+        """One fixed-width revival write: every layer's k and v of up to
+        _TIER_LANES (block, layers) loads go to the card in one copy,
+        then into the pools IN PLACE with index_copy_ (the step's graph
+        holds the pools' addresses). Unused lanes write zeros into
+        scratch block 0. Payloads in another dtype than the pool's are
+        cast (round to nearest even)."""
+        kp0 = self.cache.pools[0][0]
+        host = torch.zeros((len(self.cache.pools), 2, _TIER_LANES)
+                           + tuple(kp0.shape[1:]), dtype=kp0.dtype)
+        blocks = np.zeros((_TIER_LANES,), np.int64)
+        for j, (b, layers) in enumerate(batch):
+            blocks[j] = b
+            for li, (k, v) in enumerate(layers):
+                host[li, 0, j] = to_torch(k)
+                host[li, 1, j] = to_torch(v)
+        dev, idx = host.to(self.device), self._to_device(blocks)
+        with torch.inference_mode():
+            for li, (kp, vp) in enumerate(self.cache.pools):
+                kp.index_copy_(0, idx, dev[li, 0])
+                vp.index_copy_(0, idx, dev[li, 1])
+
     def _flush_promote(self) -> None:
         """Dequantize staged compressed-tier hits into their claimed fp
         blocks — after _flush_compress (a promote may read a slot the
-        same plan just filled) and before COW copies and the step. Pad
-        lanes write int8 scratch slot 0 into fp scratch block 0."""
+        same plan just filled) and before host loads, COW copies and
+        the step. Pad lanes write int8 scratch slot 0 into fp scratch
+        block 0."""
         jobs = self.cache.drain_promotes()
         with torch.inference_mode():
             for i in range(0, len(jobs), _TIER_LANES):
@@ -493,18 +643,26 @@ class ServeEngine:
         (no promote round trip)."""
         return self.cache.compress_enabled and self.cache.direct_read_enabled
 
-    def _step_mixed(self, rows: List[StepRow]) -> "tuple[int, int, int]":
+    def _step_mixed(self, rows: List[StepRow]
+                    ) -> "tuple[int, int, int, int]":
         """Pack the plan's rows — decode rows AND prefill chunks — into
         the step program's staged operands and run ONE step. Row i's
         token window [start, start+length) lands in a tile_q-aligned
         segment of the [T] arrays; per-row metadata (block table,
         chunk-end context, start position) sits at index i, and the null
         row at index max_batch_size backs pad tiles (ctx 1, scratch
-        table). For a
-        decode row the window is [seq_len, seq_len+1) of req.tokens —
-        the last generated token at its next-token position."""
+        table). For a plain decode row the window is [seq_len,
+        seq_len+1) of req.tokens — the last generated token at its
+        next-token position. A SPECULATIVE row widens it to [seq_len,
+        seq_len+1+k): the base token and its k drafted tokens, each
+        scattering its own k/v before attention reads it, as a chunk's
+        tokens do. last_idx holds spec_len flat indices a row: one per
+        window position for a decode row (a 1-token row repeats its
+        one), the chunk's last token for a chunk. Returns (chunks,
+        decode rows, chunk tokens, drafted tokens)."""
         self._flush_compress()
         self._flush_promote()
+        self._flush_tier_loads()
         self._flush_cow()
         t_flat, tq = self.flat_tokens, self.tile_q
         mb = self.max_blocks_per_seq
@@ -517,11 +675,17 @@ class ServeEngine:
         block_tables, context_lens = ops["block_tables"], ops["context_lens"]
         q_starts, last_idx = ops["q_starts"], ops["last_idx"]
         tile_rows, tile_offs = ops["tile_rows"], ops["tile_offs"]
+        last_idx = last_idx.reshape(self.max_batch_size, self.spec_len)
         cursor = 0
         for i, row in enumerate(rows):
             r = row.req
-            tokens[cursor:cursor + row.length] = \
-                r.tokens[row.start:row.start + row.length]
+            if row.draft:
+                # draft tokens live only in the plan, not in req.tokens
+                tokens[cursor:cursor + row.length] = \
+                    [r.tokens[row.start]] + row.draft
+            else:
+                tokens[cursor:cursor + row.length] = \
+                    r.tokens[row.start:row.start + row.length]
             positions[cursor:cursor + row.length] = np.arange(
                 row.start, row.start + row.length)
             for p in range(row.length):
@@ -530,7 +694,11 @@ class ServeEngine:
             block_tables[i] = self.cache.padded_table(r.req_id, mb)
             context_lens[i] = row.start + row.length
             q_starts[i] = row.start
-            last_idx[i] = cursor + row.length - 1
+            if row.decode:
+                for j in range(self.spec_len):
+                    last_idx[i, j] = cursor + min(j, row.length - 1)
+            else:
+                last_idx[i, :] = cursor + row.length - 1
             ntiles = -(-row.length // tq)
             t0 = cursor // tq
             for k in range(ntiles):
@@ -539,25 +707,56 @@ class ServeEngine:
             cursor += ntiles * tq
         self.step_shapes.add(tuple((a.shape, a.dtype.str)
                                    for a in ops.values()))
-        logits = self.step_graph.run()
+        logits = self.step_graph.run().reshape(
+            self.max_batch_size, self.spec_len, -1)
         chunks = [w for w in rows if not w.decode]
         decodes = [w for w in rows if w.decode]
         computed = sum(w.length for w in chunks)
         now = time.monotonic()
+        drafted = accepted = 0
         for i, row in enumerate(rows):
             r = row.req
             if row.decode:
                 # the step wrote r.generated[-1]'s k/v at the reserved
-                # slot; logits[i] predict the token at cache seq_len
+                # slot
                 self.cache.advance(r.req_id, r.generated[-1])
-                tok, lp = _sample(logits[i], r, self.cache.seq_len(r.req_id))
-                r.logprob_sum += lp
-                self._emit_token(r, tok)
+                row_accepted = 0
+                for j in range(len(row.draft) + 1):
+                    # logits[i, j] scored window position start + j: it
+                    # predicts the token at cache seq_len, which the
+                    # advances keep in step with j
+                    tok, lp = _sample(logits[i, j], r,
+                                      self.cache.seq_len(r.req_id))
+                    r.logprob_sum += lp
+                    self._emit_token(r, tok)
+                    if r.finish_reason or j >= len(row.draft):
+                        break
+                    if row.draft[j] != tok:
+                        # the first rejection: everything past seq_len is
+                        # dead; rolling back is NOT advancing, and later
+                        # steps overwrite the stale k/v
+                        break
+                    # draft j verified: the k/v this step scattered for
+                    # it IS the true token's, so the next column counts
+                    self.cache.advance(r.req_id, tok)
+                    row_accepted += 1
+                if row.draft:
+                    drafted += len(row.draft)
+                    accepted += row_accepted
+                    self._m_spec_drafted.inc(len(row.draft))
+                    self._m_spec_accepted.inc(row_accepted)
+                    self._m_spec_rejected.inc(len(row.draft) - row_accepted)
+                    self._m_spec_ratio.observe(row_accepted / len(row.draft))
             else:
                 self.cache.commit_prefill(r.req_id, row.start + row.length)
                 self.tracer.on_chunk(r.req_id, row.start, row.length)
                 if row.start + row.length == len(r.prompt):  # final chunk
-                    tok, lp = _sample(logits[i], r, len(r.prompt))
+                    if r.n_candidates > 1 and not r.forks:
+                        # fork BEFORE the primary samples: each sibling
+                        # samples its first token from the same row
+                        # under its own seed
+                        self._fork_candidates(r, logits[i, 0], now)
+                    tok, lp = _sample(logits[i, 0], r, len(r.prompt))
                     r.logprob_sum += lp
                     if not r.first_token_time:
                         r.first_token_time = now
@@ -583,10 +782,58 @@ class ServeEngine:
                         queue_depth=self.scheduler.queue_depth)
         if decodes:
             serve_event("serve_decode", batch=len(decodes),
-                        step=self.steps,
+                        step=self.steps, drafted=drafted,
+                        accepted=accepted,
                         occupancy=round(self.cache.occupancy(), 4),
                         queue_depth=self.scheduler.queue_depth)
-        return len(chunks), len(decodes), computed
+        return len(chunks), len(decodes), computed, drafted
+
+    def _fork_candidates(self, primary: Request, logits_row: np.ndarray,
+                         now: float) -> None:
+        """Split a finished prefill into n parallel-sampling candidates.
+        Each sibling's sequence shares EVERY prompt block with the
+        primary (fork_sequence bumps refcounts; COW gives a candidate a
+        private copy the first time it writes into a shared block), so
+        the prompt is prefilled and held once for any n. Siblings join
+        the running set decode-ready and sample their FIRST token from
+        the same final-chunk logits row under seed + i: since _sample is
+        deterministic in (seed, position) and the step's rows are
+        batch-invariant, candidate i's stream equals a solo run
+        submitted with that seed."""
+        for i in range(1, primary.n_candidates):
+            cb = (primary.fork_callback(i)
+                  if primary.fork_callback is not None else None)
+            sib = Request(
+                prompt=list(primary.prompt),
+                max_new_tokens=primary.max_new_tokens,
+                temperature=primary.temperature,
+                top_k=primary.top_k,
+                seed=primary.seed + i,
+                eos_id=primary.eos_id,
+                callback=cb,
+                deadline=primary.deadline,
+                cand_index=i,
+                parent=primary)
+            sib.enqueue_time = primary.enqueue_time
+            sib.admit_time = primary.admit_time
+            sib.prefill_pos = len(sib.prompt)      # decode-ready
+            sib.cached_tokens = len(sib.prompt)    # whole prompt shared
+            sib.state = RUNNING
+            self.cache.fork_sequence(primary.req_id, sib.req_id)
+            self.scheduler.running.append(sib)
+            primary.forks.append(sib)
+            self.tracer.on_enqueue(sib.req_id)
+            self.tracer.on_admit(sib.req_id)
+            tok, lp = _sample(logits_row, sib, len(sib.prompt))
+            sib.logprob_sum += lp
+            sib.first_token_time = now
+            self.tracer.on_first_token(sib.req_id)
+            self._emit_token(sib, tok)
+        self._set_sched_gauges()
+        serve_event("serve_fork", req_id=primary.req_id,
+                    candidates=primary.n_candidates,
+                    shared_blocks=self.cache.shared_blocks,
+                    occupancy=round(self.cache.occupancy(), 4))
 
     def _emit_token(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
@@ -600,6 +847,10 @@ class ServeEngine:
 
     def _finish(self, req: Request, reason: str) -> None:
         req.finish_time = time.monotonic()
+        if self.demote_finished and self.host_tier is not None:
+            # demote BEFORE the scheduler frees the blocks, so the tier
+            # holds exactly the prefix this request committed
+            self.cache.demote_sequence(req.req_id, reason="finish")
         self.scheduler.finish(req, reason)
         self.finished[req.req_id] = req
         ttft_ms = (req.first_token_time - req.enqueue_time) * 1e3
@@ -651,6 +902,10 @@ class ServeEngine:
         self.steps = 0
         self.obs.reset()
         self.tracer.reset()
+        # the tier's boot series survive the zeroing: a warm start
+        # describes this engine, not the traffic the reset baselines
+        if self.host_tier is not None:
+            self.host_tier.republish_boot_state()
 
     # -- convenience --------------------------------------------------------
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,

@@ -1,6 +1,6 @@
 """PagedKVCache: refcounted block-pool KV storage with prefix sharing
-(port of paddle_tpu/engine/paged_cache.py; the host-tier and
-tensor-parallel branches are not ported yet).
+(port of paddle_tpu/engine/paged_cache.py; the tensor-parallel branch is
+not ported yet).
 
 Instead of one dense [B, Tmax, Hkv, hd] cache per batch slot, KV state
 lives in ONE pool of fixed-size token blocks per layer
@@ -30,16 +30,33 @@ owns a parallel int8 block pool plus per-block k/v scales
 prefix blocks quantize into it — proactively while still fp-resident
 (`compress_cold`: the fp copy and index entry stay, so fp hits stay
 byte-exact), and as the first rung of the demotion ladder when the
-pool recycles a cached-free block or a sequence preempts. With no host
-tier ported, the ladder is device-fp -> device-int8 -> gone: a
-compressed entry evicted to make room is dropped and counted in
-`compress_spills`. A prefix hit on a compressed entry is read IN PLACE
+pool recycles a cached-free block or a sequence preempts:
+device-fp -> device-int8 -> host tier -> gone. A compressed entry
+evicted to make room ships its int8 payload and scales into the host
+tier (`host_tier`, engine/kvtier.py) without a second quantization, or
+is dropped without one; either way it counts in `compress_spills`. A
+prefix hit on a compressed entry is read IN PLACE
 by default: the block table carries the bias-encoded slot -(slot+1)
 and the step's mixed attention kernel dequantizes it. It claims an fp
 block and stages a dequantize PROMOTION instead when `promote_hits`
 says so, or when it is the prompt's final block (that block takes the
 last token's write, and writes target fp blocks only). The quantize
 and dequantize run as the engine's fixed-lane flushes.
+
+Host tier (`host_tier`, engine/kvtier.py): content the pool is about to
+destroy (a recycled cached-free block past the int8 rung, a preempted
+sequence's committed blocks, a finished one's with the engine's
+`demote_finished`) is copied to host arrays by a synchronous gather, so
+the copy holds what the last step wrote before any later step can
+overwrite the block. `alloc_sequence` walks a prompt past its device
+and int8 matches into the tier; each host hit claims a fresh block and
+stages a load (`drain_host_loads`) that the engine writes into the
+pools in place before the step reads it.
+
+Speculative decoding and n-best: `reserve_slots` reserves a decode
+window of 1 + k slots all-or-nothing, and `fork_sequence` clones a
+sequence onto shared blocks (and shared int8 slots) for parallel
+sampling.
 
 Host/device split: this class is the HOST-side allocator + bookkeeping.
 The device-side pools are torch tensors in `self.pools`, allocated
@@ -59,6 +76,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.engine.kvtier import HostKVTier, to_host
 from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
 
 # a committed block untouched this many steps is cold enough for the
@@ -84,6 +102,7 @@ class PagedKVCache:
                  device: DeviceLike = None,
                  enable_prefix_cache: bool = True,
                  registry: Optional[MetricsRegistry] = None,
+                 host_tier: Optional[HostKVTier] = None,
                  compress_blocks: int = 0, promote_hits: int = 0):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is scratch)")
@@ -142,7 +161,7 @@ class PagedKVCache:
         self.step_now = 0
         self.compressed_total = 0         # blocks quantized in-device
         self.promoted_total = 0           # compressed blocks re-inflated
-        self.compress_spills = 0          # compressed entries evicted (gone)
+        self.compress_spills = 0          # cslot evictions (-> host/gone)
         self.compress_hit_tokens = 0      # prompt tokens served int8
         self.direct_reads = 0             # int8 blocks read in place
         self.direct_read_tokens = 0       # prompt tokens they covered
@@ -163,6 +182,15 @@ class PagedKVCache:
         self._index: Dict[tuple, int] = {}
         self._key_of: Dict[int, tuple] = {}           # block -> index key
         self._pending_copies: List[Tuple[int, int]] = []   # (src, dst)
+        # optional host-RAM second tier: blocks the pool is about to
+        # destroy are copied out, and alloc_sequence walks it past the
+        # device index. Revivals stage (block, layers) loads here; the
+        # engine writes them into the pools (drain_host_loads) BEFORE
+        # any step reads or COW-copies them.
+        self.host_tier = host_tier
+        self._pending_host_loads: List[Tuple[int, list]] = []
+        self.tier_revivals = 0            # host-tier blocks revived
+        self.tier_hit_tokens = 0          # prompt tokens covered by them
         # cumulative stats
         self.hit_tokens = 0
         self.prompt_tokens = 0
@@ -228,33 +256,47 @@ class PagedKVCache:
         """Take a block for FRESH content, lazily evicting any stale
         cached-free index entry it still carries (frees append to the
         RIGHT and this pops from the LEFT, so the longest-freed cached
-        content is evicted first). With the int8 tier on, the content
-        is demoted before the entry dies."""
+        content is evicted first). With the int8 tier or a host tier
+        attached, the content is demoted before the entry dies."""
         block = self._free.popleft()
         key = self._key_of.pop(block, None)
         if key is not None and self._index.get(key) == block:
-            self._demote_block(block, key)
+            self._demote_block(block, key, "evict")
             del self._index[key]
             self.cached_free_evictions += 1
             self._c_evict.inc()
         self._last_hit.pop(block, None)
         return block
 
-    def _demote_block(self, block: int, key: tuple) -> bool:
-        """Ship one committed block's KV one rung down the ladder,
-        device-fp -> device-int8, under its content key: stage a
-        fixed-lane quantize the engine flushes before anything
-        overwrites the block. A no-op when the int8 tier already holds
-        the key (the key IS the content, so that copy is the truth) or
-        no slot can be freed. The JAX package's next rung, its host
-        tier, is not ported."""
-        if not self._compress_on or key in self._cindex:
+    def _demote_block(self, block: int, key: tuple, reason: str) -> bool:
+        """Ship one committed block's KV one rung down the ladder —
+        device-fp -> device-int8 -> host tier -> gone — under its content
+        key. The int8 rung stages a fixed-lane quantize the engine
+        flushes before anything overwrites the block; the host rung is a
+        synchronous gather into the tier. reason="finish" skips the int8
+        rung (finish demotion feeds the host tier). A no-op when a lower
+        rung already holds the key: the key IS the content, so that copy
+        is the truth."""
+        if self._compress_on and reason != "finish":
+            if key in self._cindex:
+                return False          # already resident one rung down
+            slot = self._take_cslot()
+            if slot is not None:
+                self._stage_compress(block, key, slot)
+                return True
+        if self.host_tier is None or self.host_tier.contains(key):
             return False
-        slot = self._take_cslot()
-        if slot is None:
-            return False
-        self._stage_compress(block, key, slot)
-        return True
+        return self.host_tier.put(key, self._block_layers(block),
+                                  reason=reason)
+
+    def _block_layers(self, block: int) -> list:
+        """One block's per-layer (k, v) host arrays, gathered in one
+        synchronous copy: it waits for every step already enqueued, so
+        it holds the block's last written content."""
+        host = torch.stack([t[block] for pair in self.pools
+                            for t in pair]).cpu()
+        return [(to_host(host[2 * i]), to_host(host[2 * i + 1]))
+                for i in range(len(self.pools))]
 
     # -- in-device compressed tier ----------------------------------------
     def _stage_compress(self, block: int, key: tuple, slot: int) -> None:
@@ -291,11 +333,27 @@ class PagedKVCache:
         return None
 
     def _spill_cslot(self, key: tuple, slot: int) -> None:
-        """An evicted compressed entry leaves the device. The JAX
-        package ships its int8 payload into the host tier; with no host
-        tier (the only case the port has) the entry is dropped and
-        counted."""
+        """An evicted compressed entry leaves the device: its int8
+        payload and scales ship straight into the host tier — one quant
+        step total, never a dequantize-requantize round trip (an int8
+        tier stores them verbatim, an fp tier their exact
+        dequantization). Without a host tier the entry is dropped."""
         self.compress_spills += 1
+        if self.host_tier is None or self.host_tier.contains(key):
+            return
+        self.host_tier.put_device_int8(key, self._slot_qlayers(slot),
+                                       self.dtype, reason="evict")
+
+    def _slot_qlayers(self, slot: int) -> list:
+        """One int8 slot's per-layer (kq, kscale, vq, vscale) payload,
+        the tier's device-int8 encoding, in one synchronous copy each of
+        the ints and the scales."""
+        q = torch.stack([t[slot] for pair in self.qpools
+                         for t in pair]).cpu()
+        s = torch.stack([t[slot] for pair in self.qscales
+                         for t in pair]).cpu().tolist()
+        return [(q[2 * i].numpy(), s[2 * i], q[2 * i + 1].numpy(),
+                 s[2 * i + 1]) for i in range(len(self.qpools))]
 
     def compress_cold(self) -> int:
         """Proactive cold sweep (engine-driven, once per step): quantize
@@ -309,8 +367,10 @@ class PagedKVCache:
         staged."""
         if not self._compress_on or not self._cfree:
             return 0
-        # a staged promote dst holds no real content until its flush
-        inflight = {b for b, _ in self._pending_promotes}
+        # a staged host-load or promote dst holds no real content until
+        # its flush, which runs after the quantize lanes
+        inflight = {b for b, _ in self._pending_host_loads}
+        inflight |= {b for b, _ in self._pending_promotes}
         cands = sorted(
             (self._last_hit.get(b, 0), b)
             for b, key in self._key_of.items()
@@ -325,12 +385,15 @@ class PagedKVCache:
             staged += 1
         return staged
 
-    def demote_sequence(self, seq_id: int) -> int:
-        """The preemption path: copy a live sequence's committed full
-        blocks one rung down (into the int8 tier) right before
-        free_sequence, so re-admission reads or promotes them instead of
-        re-prefilling. Returns blocks demoted."""
-        if not self._compress_on:
+    def demote_sequence(self, seq_id: int, reason: str = "preempt") -> int:
+        """Copy a live sequence's committed full blocks one rung down —
+        the preemption path (the scheduler calls this right before
+        free_sequence, so re-admission reads, promotes or revives them
+        instead of re-prefilling) and, with reason="finish", the
+        engine's `demote_finished` path into the host tier. Returns
+        blocks demoted."""
+        if (self.host_tier is None and not self._compress_on) \
+                or not self.enable_prefix_cache:
             return 0
         table = self._tables.get(seq_id)
         if table is None:
@@ -342,9 +405,21 @@ class PagedKVCache:
         for bi in range(self._committed.get(seq_id, 0) // bs):
             b = table[bi]
             if b < 0:
-                continue        # direct-read entry: already int8-resident
+                # direct-read entry: the content already lives in the
+                # int8 tier, so preempt demotion is a no-op; finish
+                # demotion ships the int8 payload to the host tier
+                slot = -b - 1
+                key = (self._cslot_key.get(slot)
+                       or tuple(toks[:(bi + 1) * bs]))
+                if reason == "finish" and self.host_tier is not None \
+                        and not self.host_tier.contains(key):
+                    if self.host_tier.put_device_int8(
+                            key, self._slot_qlayers(slot), self.dtype,
+                            reason=reason):
+                        count += 1
+                continue
             key = self._key_of.get(b) or tuple(toks[:(bi + 1) * bs])
-            if self._demote_block(b, key):
+            if self._demote_block(b, key, reason):
                 count += 1
         return count
 
@@ -378,7 +453,8 @@ class PagedKVCache:
     def alloc_sequence(self, seq_id: int, tokens: Sequence[int],
                        count_stats: bool = True) -> int:
         """Reserve blocks for a sequence's prompt, reusing committed
-        prefix blocks from the index and, past them, the int8 tier.
+        prefix blocks from the index and, past them, the int8 tier and
+        then the host tier.
         Returns the number of CACHED tokens (KV already on the device —
         the engine prefills only the suffix). A full-prompt hit is
         capped at n-1 so the last token always recomputes (its logits
@@ -407,6 +483,17 @@ class PagedKVCache:
                 hits = self._chits.get(key, 0) + 1
                 chits.append((key, slot,
                               end >= n or 0 < self.promote_hits <= hits))
+        # ... and past THAT into the host tier: every hit's payload is
+        # fetched now, so a later LRU eviction between admission and
+        # the flush cannot revoke it
+        host_loads: List[Tuple[tuple, list]] = []
+        if self.host_tier is not None and self.enable_prefix_cache:
+            for end in range((len(matched) + len(chits) + 1) * bs,
+                             n + 1, bs):
+                layers = self.host_tier.get(tuple(tokens[:end]))
+                if layers is None:
+                    break
+                host_loads.append((tuple(tokens[:end]), layers))
         n_direct = sum(1 for _, _, p in chits if not p)
         need = self.blocks_for(n) - len(matched) - n_direct
         revive = [b for b in matched if b not in self._refs]
@@ -452,20 +539,42 @@ class PagedKVCache:
                     self._key_of[b] = key
                 self.promoted_total += 1
                 self._c_promote.inc()
-        fresh = [self._pop_free() for _ in range(need - n_promoted)]
+        # host-tier hits claim fresh blocks and stage their loads; the
+        # key registers first-wins so later prompts can share the block
+        # as soon as the engine writes the load
+        host_blocks: List[int] = []
+        for key, layers in host_loads:
+            b = self._pop_free()
+            self._refs[b] = 1
+            host_blocks.append(b)
+            self._pending_host_loads.append((b, layers))
+            self._last_hit[b] = self.step_now
+            if key not in self._index and b not in self._key_of:
+                self._index[key] = b
+                self._key_of[b] = key
+        fresh = [self._pop_free()
+                 for _ in range(need - n_promoted - len(host_blocks))]
         for b in fresh:
             self._refs[b] = 1
             self._last_hit[b] = self.step_now
-        self._tables[seq_id] = matched + mid_blocks + fresh
+        self._tables[seq_id] = matched + mid_blocks + host_blocks + fresh
         self._lens[seq_id] = n
         self._tokens[seq_id] = list(tokens)
-        cached = min((len(matched) + len(chits)) * bs, n - 1)
+        cached = min((len(matched) + len(chits) + len(host_blocks))
+                     * bs, n - 1)
         self._committed[seq_id] = cached
         if chits:
-            self.compress_hit_tokens += max(0, cached - len(matched) * bs)
+            self.compress_hit_tokens += max(
+                0, min((len(matched) + len(chits)) * bs, cached)
+                - len(matched) * bs)
         if n_direct:
             self.direct_read_tokens += n_direct * bs
             self._c_direct_toks.inc(n_direct * bs)
+        if host_blocks:
+            tier_toks = max(0, cached - (len(matched) + len(chits)) * bs)
+            self.tier_revivals += len(host_blocks)
+            self.tier_hit_tokens += tier_toks
+            self.host_tier.note_revived(len(host_blocks), tier_toks)
         if count_stats:
             self.hit_tokens += cached
             self.prompt_tokens += n
@@ -511,9 +620,18 @@ class PagedKVCache:
         out, self._pending_copies = self._pending_copies, []
         return out
 
+    def drain_host_loads(self) -> List[Tuple[int, list]]:
+        """Staged host-tier revivals: (block, per-layer [(k, v)] host
+        arrays). The engine MUST write them into the pools BEFORE
+        draining COW copies — a just-revived block can be the src of a
+        same-plan copy-on-write."""
+        out, self._pending_host_loads = self._pending_host_loads, []
+        return out
+
     def drain_compress(self) -> List[Tuple[int, int]]:
         """Staged (fp block, int8 slot) quantizations. The engine MUST
-        flush these FIRST — before promotions and COW copies — so the
+        flush these FIRST — before promotions, host loads and COW
+        copies — so the
         quantize lanes read every src block ahead of any same-plan
         writer reusing it."""
         out, self._pending_compress = self._pending_compress, []
@@ -522,7 +640,7 @@ class PagedKVCache:
     def drain_promotes(self) -> List[Tuple[int, int]]:
         """Staged (fp block, int8 slot) dequantize promotions, flushed
         AFTER compressions (a promote may read a slot the same plan just
-        filled) and BEFORE COW copies and the step."""
+        filled) and BEFORE host loads, COW copies and the step."""
         out, self._pending_promotes = self._pending_promotes, []
         self._promote_slots = set()
         return out
@@ -561,24 +679,65 @@ class PagedKVCache:
         returns the FLAT pool slot (block_id * block_size + offset).
         Does NOT advance the length — call advance() after the step
         actually writes."""
+        return self.reserve_slots(seq_id, 1)[0]
+
+    def reserve_slots(self, seq_id: int, count: int) -> List[int]:
+        """Reserve the next `count` token slots in one ALL-OR-NOTHING
+        transaction (a speculative decode window: the base token plus k
+        drafts). The bill — COW copies for shared blocks the window
+        touches plus fresh blocks past the table's end — is checked
+        first, and CacheExhausted raises BEFORE any refcount or table
+        changes, so a failed reservation leaves nothing to roll back.
+        Returns the flat pool slots in window order. The length does not
+        advance: the engine calls advance() only for the positions
+        verification accepted, and the slots past them are reserved
+        (and overwritten) again by the next step — that IS the
+        speculative rollback."""
         pos = self._lens[seq_id]
         table = self._tables[seq_id]
         bs = self.block_size
-        in_table = pos < len(table) * bs
-        cow_need = int(in_table and self._refs[table[pos // bs]] > 1)
-        new_need = max(0, self.blocks_for(pos + 1) - len(table))
+        end = pos + count
+        in_table_end = min(end, len(table) * bs)
+        cow_need = 0
+        if in_table_end > pos:
+            cow_need = sum(
+                1 for bi in range(pos // bs, (in_table_end - 1) // bs + 1)
+                if self._refs[table[bi]] > 1)
+        new_need = max(0, self.blocks_for(end) - len(table))
         if cow_need + new_need > len(self._free):
             raise CacheExhausted(
                 f"need {cow_need + new_need} blocks ({cow_need} COW + "
                 f"{new_need} fresh), {len(self._free)} free")
-        if in_table:
-            self.ensure_writable(seq_id, pos, pos + 1)
+        if in_table_end > pos:
+            self.ensure_writable(seq_id, pos, in_table_end)
         for _ in range(new_need):
             block = self._pop_free()
             self._refs[block] = 1
             self._last_hit[block] = self.step_now
             table.append(block)
-        return table[pos // bs] * bs + pos % bs
+        return [table[(pos + j) // bs] * bs + (pos + j) % bs
+                for j in range(count)]
+
+    def fork_sequence(self, src_id: int, dst_id: int) -> None:
+        """Clone `src_id`'s sequence state into `dst_id` sharing EVERY
+        block (refcount bump — no new block, no device copy): the
+        parallel-sampling primitive. The first time a fork writes (its
+        own tokens, starting with the shared partly filled tail block),
+        ensure_writable's copy-on-write gives it a private copy. A
+        shared int8 direct-read slot (a negative table entry) gets its
+        pin bumped instead, so free_sequence drops both the same way."""
+        if dst_id in self._tables:
+            raise ValueError(f"sequence {dst_id} already allocated")
+        table = self._tables[src_id]
+        for b in table:
+            if b < 0:
+                self._cslot_refs[-b - 1] += 1
+            else:
+                self._refs[b] += 1
+        self._tables[dst_id] = list(table)
+        self._lens[dst_id] = self._lens[src_id]
+        self._tokens[dst_id] = list(self._tokens[src_id])
+        self._committed[dst_id] = self._committed[src_id]
 
     def advance(self, seq_id: int, token: int) -> None:
         """The decode step wrote `token`'s k/v at the reserved slot:
@@ -625,6 +784,21 @@ class PagedKVCache:
             self._pending_copies = [
                 (s, d) for s, d in self._pending_copies
                 if d not in freed_set]
+        if freed_set and self._pending_host_loads:
+            # cancel-mid-revival: the request died before its staged
+            # host loads were written. The freed blocks were indexed for
+            # content that never arrived — deregister them (the tier
+            # still holds the data; a re-request revives it anew)
+            stale = [b for b, _ in self._pending_host_loads
+                     if b in freed_set]
+            if stale:
+                self._pending_host_loads = [
+                    (b, la) for b, la in self._pending_host_loads
+                    if b not in freed_set]
+                for b in stale:
+                    key = self._key_of.pop(b, None)
+                    if key is not None and self._index.get(key) == b:
+                        del self._index[key]
         if freed_set and self._pending_promotes:
             # cancel-mid-promotion: a freed dst block may be handed out
             # again at once, and a stale dequantize flushing later would
@@ -727,11 +901,16 @@ class PagedKVCache:
             out["compress_hit_tokens"] = self.compress_hit_tokens
             out["direct_int8_reads"] = self.direct_reads
             out["direct_int8_tokens"] = self.direct_read_tokens
+        if self.host_tier is not None:
+            out["tier_revivals"] = self.tier_revivals
+            out["tier_hit_tokens"] = self.tier_hit_tokens
+            out.update(self.host_tier.stats())
         return out
 
     def reset_stats(self) -> None:
         self.hit_tokens = self.prompt_tokens = self.cow_copies = 0
         self.cached_free_evictions = self.cached_free_revivals = 0
+        self.tier_revivals = self.tier_hit_tokens = 0
         self.compressed_total = self.promoted_total = 0
         self.compress_spills = self.compress_hit_tokens = 0
         self.direct_reads = self.direct_read_tokens = 0
@@ -745,6 +924,10 @@ class PagedKVCache:
             raise RuntimeError(f"live sequences: {list(self._tables)}")
         if self._refs:
             raise RuntimeError(f"leaked refcounts: {self._refs}")
+        if self._pending_host_loads:
+            raise RuntimeError(
+                f"{len(self._pending_host_loads)} host-tier loads never "
+                "flushed")
         if self._pending_compress:
             raise RuntimeError(
                 f"{len(self._pending_compress)} compress lanes never "

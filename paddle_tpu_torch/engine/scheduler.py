@@ -1,7 +1,5 @@
 """Continuous batching scheduler with chunked prefill (port of
-paddle_tpu/engine/scheduler.py, pure Python; speculative drafts and
-n-best forks are not ported yet, so every decode row is one token and
-every request one batch slot).
+paddle_tpu/engine/scheduler.py, pure Python).
 
 Continuous batching reschedules every STEP: finished sequences leave
 the running set immediately, waiting requests are admitted the moment
@@ -18,13 +16,20 @@ packed into the same launch.
   decode row (its next token) for decode-ready sequences, a prefill
   chunk of at most `max_prefill_tokens` total tokens for sequences
   still prefilling. A decode row is the 1-token window
-  [seq_len, seq_len+1) of req.tokens.
+  [seq_len, seq_len+1) of req.tokens; with a drafter (speculative
+  decoding, engine/draft.py) it widens to [seq_len, seq_len+1+k), the
+  base token plus k drafted tokens, when the pool holds the whole
+  window — a short pool drops the draft, never preempts for it.
+- Parallel sampling: a request with n_candidates > 1 claims a batch
+  slot for each candidate from admission on, so the siblings the
+  engine forks at its final chunk always have room to decode.
 - Preemption by recompute: when a decode append or a COW copy needs a
   block and the pool is empty, the running request with the most
-  deadline slack (last admitted on ties) is evicted — its blocks are
-  dropped and it rejoins the FRONT of the waiting queue with
-  prompt := prompt + generated, so its re-prefill reproduces the exact
-  KV state.
+  deadline slack is evicted — last admitted on ties, or with a lower
+  tier attached (the int8 tier, the host tier) the one whose round
+  trip costs least — its blocks are demoted and dropped, and it
+  rejoins the FRONT of the waiting queue with prompt := prompt +
+  generated, so its re-prefill reproduces the exact KV state.
 
 The scheduler owns no device state; it manipulates the PagedKVCache's
 host-side bookkeeping and Request objects.
@@ -59,6 +64,18 @@ class Request:
     # scheduler's preemption choice reads it: the victim is the running
     # request with the MOST slack.
     deadline: float = float("inf")
+    # parallel sampling (best-of-n): the engine forks n_candidates - 1
+    # siblings off this request's finished prefill, all sharing its
+    # prompt blocks (PagedKVCache.fork_sequence). Siblings are ordinary
+    # requests with cand_index > 0 and `parent` set; the primary lists
+    # them in `forks`. fork_callback(i) builds sibling i's per-token
+    # stream callback (None = decode silently).
+    n_candidates: int = 1
+    cand_index: int = 0
+    parent: Optional["Request"] = None
+    forks: List["Request"] = field(default_factory=list)
+    fork_callback: Optional[Callable[[int],
+                                     Optional[Callable[[int], None]]]] = None
     # cumulative log-probability of the sampled tokens under each
     # step's sampling distribution
     logprob_sum: float = 0.0
@@ -96,12 +113,16 @@ class Request:
 class StepRow:
     """One row of a mixed step: run `req`'s token window
     [start, start + length). decode=True is the next-token window of a
-    decode-ready sequence (its slot already reserved); decode=False is
-    a prefill chunk of the prompt."""
+    decode-ready sequence (its slots already reserved); decode=False is
+    a prefill chunk of the prompt. A decode row with a non-empty
+    `draft` is a SPECULATIVE row: its window is [start, start+1+k) —
+    the base token plus k drafted tokens — and the engine verifies all
+    k positions from the one step, emitting the accepted prefix."""
     req: Request
     start: int
     length: int
     decode: bool = False
+    draft: List[int] = field(default_factory=list)
 
 
 Plan = List[StepRow]
@@ -115,11 +136,15 @@ class Scheduler:
     prompt+generation."""
 
     def __init__(self, cache: PagedKVCache, max_batch_size: int = 8,
-                 max_prefill_tokens: int = 512, max_seq_len: int = 2048):
+                 max_prefill_tokens: int = 512, max_seq_len: int = 2048,
+                 drafter=None):
         self.cache = cache
         self.max_batch_size = max_batch_size
         self.max_prefill_tokens = max_prefill_tokens
         self.max_seq_len = max_seq_len
+        # speculative decoding: when set, decode-ready rows carry up to
+        # drafter.k drafted tokens for batched verification
+        self.drafter = drafter
         self.waiting: deque[Request] = deque()
         self.running: List[Request] = []
         # engine hooks: fired after a preemption moves a req back to
@@ -173,9 +198,25 @@ class Scheduler:
                 req.prefill_pos += take
                 budget -= take
                 rows.append(StepRow(req, start, take, decode=False))
-            elif self._reserve_decode_block(req):
-                rows.append(StepRow(req, self.cache.seq_len(req.req_id), 1,
-                                    decode=True))
+            else:
+                draft = self._propose_draft(req)
+                if draft:
+                    try:
+                        # all-or-nothing: base token + k draft slots in
+                        # one transaction; a short pool drops the draft
+                        # rather than preempting for it
+                        self.cache.reserve_slots(req.req_id,
+                                                 1 + len(draft))
+                        rows.append(StepRow(
+                            req, self.cache.seq_len(req.req_id),
+                            1 + len(draft), decode=True, draft=draft))
+                        continue
+                    except CacheExhausted:
+                        pass
+                if self._reserve_decode_block(req):
+                    rows.append(StepRow(
+                        req, self.cache.seq_len(req.req_id), 1,
+                        decode=True))
         # a later row's block starvation may have evicted an
         # ALREADY-planned request: its table is freed and prefill_pos
         # reset, so its row must not reach the engine
@@ -187,11 +228,36 @@ class Scheduler:
         self._check_liveness()
         return None
 
+    def _propose_draft(self, req: Request) -> List[int]:
+        """Draft tokens for one decode-ready row, capped so the whole
+        speculative window — base token + k drafts, each of which may
+        EMIT a token — never overruns the request's token budget or the
+        sequence-length ceiling."""
+        if self.drafter is None:
+            return []
+        room = min(self.drafter.k,
+                   req.max_new_tokens - req.num_generated - 1,
+                   self.max_seq_len - len(req.tokens) - 1)
+        if room <= 0:
+            return []
+        return self.drafter.propose(req.tokens, room)
+
+    def _slots_of(self, req: Request) -> int:
+        """Batch slots a request claims: itself, plus — while it still
+        prefills — one per sibling the engine will fork at its final
+        chunk, so the forks' decode rows have batch room the moment
+        they exist."""
+        if not req.prefilling:
+            return 1
+        return 1 + max(0, req.n_candidates - 1 - len(req.forks))
+
     def _try_admit(self) -> List[Request]:
         admitted: List[Request] = []
         while self.waiting:
             req = self.waiting[0]
-            if (len(self.running) + len(admitted) >= self.max_batch_size
+            slots = (sum(self._slots_of(r) for r in self.running)
+                     + sum(self._slots_of(r) for r in admitted))
+            if (slots + self._slots_of(req) > self.max_batch_size
                     or not self.cache.can_allocate(req.tokens)):
                 break       # FIFO: don't skip ahead of the head request
             self.waiting.popleft()
@@ -241,31 +307,43 @@ class Scheduler:
         return False
 
     def _preempt_cost(self, req: Request) -> float:
-        """Modeled cost of evicting `req` and bringing it back, with the
-        in-device int8 tier on. Committed FULL blocks demote into free
-        int8 slots and come back as on-device reads (direct, rate 0.1)
-        or promote scatters (rate 0.25), linear in their tokens; blocks
-        beyond the free slots are dropped (no host tier), so they
-        re-prefill like the uncommitted tail: attention over the
-        growing context makes that ~n^2."""
+        """Modeled cost of evicting `req` and bringing it back. Without
+        a lower tier every committed token re-prefills, and attention
+        over the growing context makes that ~n^2. With a host tier,
+        committed FULL blocks swap out and revive by copy (linear in
+        bytes, ~n) and only the uncommitted tail re-prefills (~tail^2).
+        The in-device int8 rung is cheaper still — demotion and revival
+        are on-device reads (direct, rate 0.1) or promote scatters (rate
+        0.25) — but only for as many blocks as the int8 pool has FREE
+        slots; a demotion beyond that spills to the host rung (with a
+        tier) or drops the content (without one, so it re-prefills)."""
         n = len(req.tokens)
+        if self.cache.host_tier is None \
+                and not self.cache.compress_enabled:
+            return float(n * n)
         bs = self.cache.block_size
         full = (n // bs) * bs
         tail = n - full
-        cheap = min(full, self.cache.compress_free_slots * bs)
-        rest = full - cheap
-        rate = 0.1 if self.cache.direct_read_enabled else 0.25
-        return float(cheap * rate + rest * rest + tail * tail)
+        if self.cache.compress_enabled:
+            cheap = min(full, self.cache.compress_free_slots * bs)
+            rest = full - cheap
+            rate = 0.1 if self.cache.direct_read_enabled else 0.25
+            if self.cache.host_tier is not None:
+                return float(cheap * rate + rest + tail * tail)
+            return float(cheap * rate + rest * rest + tail * tail)
+        return float(full + tail * tail)
 
     def _pick_victim(self, keep: Optional[Request]) -> Optional[Request]:
         """The running request (other than `keep`) with the MOST
         deadline slack; without deadlines every slack is +inf and the
-        choice degrades to the last admitted. With the int8 tier on,
-        equal-slack candidates are split by the demote-vs-recompute cost
-        model (_preempt_cost: the cheapest round trip loses its
-        blocks). None when nothing else is left to evict."""
+        choice degrades to the last admitted. With a host tier or the
+        int8 tier attached, equal-slack candidates are split by the
+        swap-vs-recompute cost model (_preempt_cost: the cheapest round
+        trip loses its blocks). None when nothing else is left to
+        evict."""
         best: Optional[Request] = None
-        if not self.cache.compress_enabled:
+        if self.cache.host_tier is None \
+                and not self.cache.compress_enabled:
             for r in self.running:      # later index wins ties (stable max)
                 if r is not keep and (best is None
                                       or r.deadline >= best.deadline):
@@ -284,8 +362,8 @@ class Scheduler:
     def preempt(self, req: Request) -> None:
         """Evict by recompute: drop block refs, fold generated tokens
         into the prompt, and requeue at the FRONT so it re-prefills
-        first. With the int8 tier on, the committed blocks demote into
-        it first, so re-admission reads them back instead of
+        first. With a lower tier attached, the committed blocks demote
+        into it first, so re-admission reads or revives them instead of
         recomputing them."""
         self.cache.demote_sequence(req.req_id)
         self.cache.free_sequence(req.req_id)
@@ -323,9 +401,9 @@ class Scheduler:
 
     def cancel(self, req: Request) -> bool:
         """Remove a request wherever it sits — the wait queue (no KV
-        held) or the running set (frees its blocks). Returns False when
-        the request already finished. Engine-thread only, BETWEEN
-        steps."""
+        held) or the running set (frees its blocks; shared prefix blocks
+        just drop one reference). Returns False when the request already
+        finished. Engine-thread only, BETWEEN steps."""
         if req in self.running:
             self.cache.free_sequence(req.req_id)
             self.running.remove(req)

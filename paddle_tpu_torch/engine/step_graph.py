@@ -11,9 +11,12 @@ everything it reads or writes keeps one address for its life:
 - the step's nine int32 operands are views into ONE device buffer,
   filled each step from a pinned host buffer of the same layout by a
   single non-blocking copy;
-- the logits land in a static [B, V] float32 output (the cast to
-  float32 is inside the graph), and one non-blocking copy moves them to
-  a pinned host buffer before the step's one synchronisation;
+- the logits land in a static float32 output (the cast to float32 is
+  inside the graph), [B, V], or [B, spec_len, V] for an engine that
+  speculates (`spec_len` = 1 + spec_k logit positions a row, fixed when
+  the engine is built, as JAX's last_idx [B, spec_len] is), and one
+  non-blocking copy moves them to a pinned host buffer before the
+  step's one synchronisation;
 - the KV pools, and with the int8 tier its pools and scales, are
   allocated once by the cache and written in place: their addresses are
   recorded at capture and checked, on the host, before every step, and
@@ -56,11 +59,14 @@ class StepGraph:
     tile on the null row `max_batch_size` at context 1 with an all-zero
     table, every token 0 at position 0 writing scratch slot 0), the
     engine writes the plan's rows over it, and `run()` returns the
-    step's float32 logits [max_batch_size, V] as a host array that the
-    next `run()` overwrites."""
+    step's float32 logits, last_idx's shape + (V,), as a host array that
+    the next `run()` overwrites. last_idx is [max_batch_size] for
+    `spec_len` 1 (the engine without speculation: JAX's [B, 1] without
+    its unit axis, so its operands and logits keep their layout) and
+    [max_batch_size, spec_len] otherwise."""
 
     def __init__(self, model, cache, flat_tokens: int, tile_q: int,
-                 max_batch_size: int, max_blocks: int):
+                 max_batch_size: int, max_blocks: int, spec_len: int = 1):
         if cache.num_blocks * cache.block_size > _INT32_MAX:
             raise ValueError(
                 f"{cache.num_blocks} blocks of {cache.block_size} give slot "
@@ -74,7 +80,8 @@ class StepGraph:
                   "context_lens": (b + 1,), "q_starts": (b + 1,),
                   "tile_rows": (flat_tokens // tile_q,),
                   "tile_offs": (flat_tokens // tile_q,),
-                  "slots": (flat_tokens,), "last_idx": (b,)}
+                  "slots": (flat_tokens,),
+                  "last_idx": (b,) if spec_len == 1 else (b, spec_len)}
         spans, total = {}, 0
         for name in OPERANDS:
             n = int(np.prod(shapes[name]))
@@ -107,7 +114,7 @@ class StepGraph:
         self.warmup_ms: Optional[float] = None
         self.capture_ms: Optional[float] = None
         if cuda:
-            self._capture(b, model.vocab)
+            self._capture(shapes["last_idx"] + (model.vocab,))
         else:
             self._programs[self.signature] = None
 
@@ -138,14 +145,14 @@ class StepGraph:
             v[0], v[1], self.cache.pools, *v[2:], qpools=self.cache.qpools,
             qscales=self.cache.qscales)
 
-    def _capture(self, rows: int, vocab: int) -> None:
+    def _capture(self, logits_shape: tuple) -> None:
         """Warm up on a side stream, capture one step there and rejoin
         the current stream; both run the pad-only step, which writes
         only scratch. The warm-up's kernel launches are set-up and are
         not counted; the capture records how many each replay makes."""
         dev = self.device
         self._dev.copy_(self._host)
-        self._host_logits = torch.empty((rows, vocab), dtype=torch.float32,
+        self._host_logits = torch.empty(logits_shape, dtype=torch.float32,
                                         pin_memory=True)
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)

@@ -14,6 +14,10 @@ mixed kernel's in-register dequant reproduces `dequantize_block`:
   dtype. RQMAX is f32(1/127) rounded once: multiplying by it, never
   dividing by QMAX, keeps every dequant site (this function, the
   plain mixed gather, the CUDA kernel) on the same two roundings.
+
+The host KV tier (engine/kvtier.py) uses the JAX package's host pair on
+numpy, `quantize_host_int8` / `dequantize_host_int8`: one abs-max scale
+per array, dequantized as q * (scale / QMAX).
 """
 
 from __future__ import annotations
@@ -57,3 +61,10 @@ def quantize_host_int8(x: np.ndarray) -> Tuple[np.ndarray, float]:
     scale = float(max(np.max(np.abs(xf)), 1e-12))
     q = np.clip(np.round(xf / scale * QMAX), -QMAX, QMAX)
     return q.astype(np.int8), scale
+
+
+def dequantize_host_int8(q: np.ndarray, scale: float, dtype) -> np.ndarray:
+    """Inverse of quantize_host_int8, as the JAX package computes it:
+    (q -> f32) * (scale / QMAX), then cast to the numpy `dtype`; max abs
+    error is scale / QMAX per element (one quantization step)."""
+    return (np.asarray(q, np.float32) * (scale / QMAX)).astype(dtype)

@@ -39,7 +39,8 @@ def test_scan_covers_the_package():
                 "ops/fused_ce.py", "optim/optimizer.py",
                 "optim/lr_schedules.py", "core/executor.py",
                 "models/convert.py", "nn/layers.py", "utils/flags.py",
-                "utils/tree.py", "utils/rng.py"):
+                "utils/tree.py", "utils/rng.py", "engine/draft.py",
+                "engine/kvtier.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -68,7 +69,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.kernels.flash, paddle_tpu_torch.ops, "
             "paddle_tpu_torch.optim, paddle_tpu_torch.core, "
             "paddle_tpu_torch.utils.flags, paddle_tpu_torch.utils.tree, "
-            "paddle_tpu_torch.utils.rng, paddle_tpu_torch; "
+            "paddle_tpu_torch.utils.rng, paddle_tpu_torch.engine.draft, "
+            "paddle_tpu_torch.engine.kvtier, paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -379,6 +379,115 @@ def test_ragged_output_depends_on_position_not_packing(p, long_start,
                        out[where[0]])
 
 
+def _window_case(start, k, hkv, seed):
+    """One sequence's K/V (800 positions, H 8, D 64, BS 16, tile_q 8)
+    read by a speculative decode window — one row of 1 + k queries at
+    positions start..start+k (ctx start + k + 1) — and by k + 1 decode
+    rows, one a position (ctx p + 1); window query j holds the same
+    vector as decode row j. Returns the case and, for each position,
+    (flat index in the window, flat index of its decode row)."""
+    h, d, bs, tq, length = 8, 64, 16, 8, 800
+    rng = np.random.default_rng(seed)
+    nblk = length // bs
+    ids = rng.permutation(np.arange(1, nblk + 1)).astype(np.int32)
+    rows = [(start + k + 1, start, k + 1)] + [
+        (start + j + 1, start + j, 1) for j in range(k + 1)]
+    bt = np.zeros((len(rows) + 1, nblk), np.int32)
+    cl = np.ones((len(rows) + 1,), np.int32)
+    qs = np.zeros((len(rows) + 1,), np.int32)
+    tile_rows, tile_offs = [], []
+    for i, (ctx, q_start, qlen) in enumerate(rows):
+        bt[i], cl[i], qs[i] = ids, ctx, q_start
+        for t in range(-(-qlen // tq)):
+            tile_rows.append(i)
+            tile_offs.append(t * tq)
+    tile_rows.append(len(rows))           # a pad tile on the null row
+    tile_offs.append(0)
+    q = rng.standard_normal((len(tile_rows) * tq, h, d), np.float32)
+    pairs = [(j, (1 + j) * tq) for j in range(k + 1)]
+    for w, r in pairs:
+        q[r] = q[w]
+    shape = (nblk + 1, bs, hkv, d)
+    case = {"q": q, "k_pool": rng.standard_normal(shape, np.float32),
+            "v_pool": rng.standard_normal(shape, np.float32),
+            "block_tables": bt, "context_lens": cl, "q_starts": qs,
+            "tile_rows": np.asarray(tile_rows, np.int32),
+            "tile_offs": np.asarray(tile_offs, np.int32)}
+    return case, pairs
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("start,k,hkv", [
+    (203, 4, 8),     # inside one block, off the block grid
+    (254, 4, 8),     # across a block boundary and the kv split at 256
+    (509, 7, 2),     # a full tile across the split at 512, GQA
+    (16, 1, 8),      # one draft from a block-aligned start
+])
+def test_speculative_window_equals_single_token_rows(start, k, hkv, dtype,
+                                                     mixed):
+    """A decode window of 1 + k tokens at an off-block start (what a
+    speculating engine's decode row is) gives, row for row, the bits of
+    k + 1 single-token decode rows at the same positions: kernel 1, and
+    kernel 2 with every other block int8."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    case, pairs = _window_case(start, k, hkv, seed=start + k)
+    quant = {}
+    if mixed:
+        case, _, _ = int8_blocks(case, "odd", dt)
+        quant = {n: torch.from_numpy(case[n]).cuda() for n in QUANT_ARGS}
+    ts = [torch.from_numpy(case[n]).cuda() for n in RAGGED_ARGS]
+    ts = [t.to(dt) if t.is_floating_point() else t for t in ts]
+    out = paged.ragged_paged_attention(*ts, **quant)
+    assert torch.isfinite(out).all()
+    for w, r in pairs:
+        assert torch.equal(out[w], out[r]), (w, r)
+
+
+class _CycleDrafter:
+    """Always drafts k tokens (the last token + 1, + 2, ... mod the
+    vocabulary): every decode row of the step is a speculative
+    window."""
+
+    def __init__(self, k=4, vocab=97):
+        self.k, self.vocab = k, vocab
+
+    def propose(self, tokens, max_tokens=None):
+        cap = self.k if max_tokens is None else min(self.k, max_tokens)
+        return [(tokens[-1] + i) % self.vocab for i in range(1, cap + 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_speculating_graph_step_equals_eager_step(dtype):
+    """An engine with spec_k=4 captures one graph whose [B, 5, V] logits
+    equal the eager step's bit for bit after every step with draft
+    windows in the batch; its batched streams equal each request served
+    alone on a fresh speculating engine."""
+    _need_card()
+    model = _graph_model(getattr(torch, dtype))
+    kw = dict(GRAPH_ENGINE, spec_k=4)
+    eng = ServeEngine(model, registry=MetricsRegistry(),
+                      drafter=_CycleDrafter(), **kw)
+    wave1, _, _ = _graph_traffic(seed=3)
+    prompts = wave1 + [[5, 9, 2], list(range(1, 30))]
+    reqs = [eng.add_request(p, max_new_tokens=9) for p in prompts]
+    draft_steps = 0
+    while eng.step():
+        graph = eng.step_graph.logits.clone()
+        assert graph.shape == (4, 5, 97)
+        assert torch.isfinite(graph).all()
+        assert torch.equal(graph, eng.step_graph.eager())
+        idx = eng.step_graph.operands["last_idx"]
+        draft_steps += bool((idx[:, 1:] != idx[:, :1]).any())
+    assert draft_steps > 0 and len(eng.step_graph.graphs) == 1
+    assert eng.obs.get("ptpu_spec_drafted_tokens_total").value > 0
+    for prompt, r in zip(prompts, reqs):
+        alone = ServeEngine(model, registry=MetricsRegistry(),
+                            drafter=_CycleDrafter(), **kw)
+        assert alone.generate([prompt], max_new_tokens=9)[0] == r.generated
+
+
 @pytest.mark.parametrize("mixed", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ragged_kernels_are_deterministic(dtype, mixed):
