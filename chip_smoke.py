@@ -72,6 +72,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -86,9 +87,16 @@ from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.models import CausalLM, load_jax_params
+from paddle_tpu_torch.obs import (DeviceMemoryMonitor, FlightRecorder,
+                                  GoodputLedger, MetricsServer,
+                                  causal_lm_step_flops, param_count)
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.ops import linear_cross_entropy
 from paddle_tpu_torch.optim import Adam
+from paddle_tpu_torch.parallel import DistStrategy, MeshTrainer, make_mesh
+from paddle_tpu_torch.resilience import PREEMPT_EXIT_CODE, chaos
+from paddle_tpu_torch.resilience.supervisor import (RunSupervisor,
+                                                    train_resilient)
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, causal_lm_tree,
                                       decode_as_ragged, flash_case,
@@ -96,6 +104,7 @@ from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       pack_prompts, packed_segment_ids,
                                       paged_case, ragged_case,
                                       write_serving_export)
+from paddle_tpu_torch.utils.log import add_event_tap, remove_event_tap
 from paddle_tpu_torch.utils.tree import flatten_with_keys
 
 # the repo's LM configuration (paddle_tpu/benchmark/models.py:150-152)
@@ -2370,6 +2379,368 @@ def phase_resume(cfg: dict, tree: dict, device: torch.device,
     return out
 
 
+# -- the resilient training loop -----------------------------------------
+
+def weighted_lm_loss(module, batch, generator, training):
+    """`lm_loss` over (inputs, targets, weights): the weighted mean of the
+    per-token fused cross-entropy. The float32 weights (all ones) are
+    the batch's floating leaf, so an injected NaN reaches the loss of a
+    batch of integer tokens."""
+    inp, tgt, w = batch
+    hid = module(inp, return_hidden=True, generator=generator)
+    wt, bias = module.head_weights()
+    per = linear_cross_entropy(hid, wt.to(hid.dtype), tgt,
+                               None if bias is None else bias.to(hid.dtype))
+    return (per * w).sum() / w.sum(), {}
+
+
+@contextlib.contextmanager
+def chaos_env(**env):
+    """Arm PTPU_CHAOS_* (and friends) for one run; restore after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    chaos.reset()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        chaos.reset()
+
+
+class _Preempted(Exception):
+    """Raised by the `resilient` phase's supervisor in place of exiting."""
+
+
+class _StallFirstStep:
+    """A trainer whose first `train_step` sleeps `delay_s` first (a
+    wedged step for the watchdog); everything else is the inner one's."""
+
+    def __init__(self, inner, delay_s: float):
+        self._inner = inner
+        self._delay_s = delay_s
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def train_step(self, batch, generator=None):
+        if self._delay_s:
+            time.sleep(self._delay_s)
+            self._delay_s = 0.0
+        return self._inner.train_step(batch, generator=generator)
+
+
+def phase_resilient(cfg: dict, tree: dict, device: torch.device,
+                    card: dict) -> dict:
+    """The resilient training loop: `train_resilient` over a guarded
+    `MeshTrainer` (bad_step_budget 2; the default mesh over the card) on
+    the train path's configuration (bf16 CausalLM, Adam, B x T of
+    cfg["resilient"], dropout 0), `save_every` 2, checkpoints in a
+    temporary directory, with a GoodputLedger, the MFU meter, a
+    DeviceMemoryMonitor and the step-phase histograms on a registry of
+    each run's own. Runs, in order:
+    (a) clean, sync saves; (b) clean, async saves; (c) NaN burst at
+    steps 2-3; (d) NaN at step 3 for 3 attempts (blows the budget: one
+    rollback); (e) SIGTERM at step 3 under a supervisor whose exit
+    raises, then a trainer made anew resumes from `restore_latest`; (f)
+    two injected shard-write faults and the last checkpoint corrupted,
+    then `restore_latest` falls back; (g) a first step held past a 0.2 s
+    watchdog with a FlightRecorder. Checks: every run's curve and every
+    state leaf equal run (a)'s; the event counts; the ledger's counts ==
+    the tapped event stream; MFU in (0, 1] (card); the memory gauge's
+    peak >= torch.cuda.max_memory_allocated (card); run (a)'s registry
+    scraped over HTTP from a MetricsServer shows the training series;
+    one bundle naming step 0; each flash kernel launched attempts x
+    layers times a run."""
+    cuda = device.type == "cuda"
+    rcfg = cfg["resilient"]
+    steps, batch, every = rcfg["steps"], rcfg["batch"], rcfg["save_every"]
+    layers = cfg["lm"]["num_layers"]
+    data = _lm_batches(cfg, steps, batch, device, SEED + 50)
+    ones = torch.ones(batch, cfg["train_seq"], device=device)
+
+    def batch_for(step):
+        return (*data[step], ones)
+
+    def new_trainer(init=True):
+        model = (_lm(cfg, tree, cfg["dtype"], device) if init else
+                 CausalLM(vocab=cfg["vocab"], max_len=cfg["max_len"],
+                          dtype=cfg["dtype"], device=device, **cfg["lm"]))
+        return MeshTrainer(
+            model, Adam(model.parameters(), cfg["train_lr"]),
+            weighted_lm_loss, None if cuda else make_mesh(devices=[device]),
+            strategy=DistStrategy(bad_step_budget=rcfg["budget"]), seed=SEED)
+
+    flops = None
+    tmp_root = tempfile.mkdtemp(prefix="resilient-")
+    runs: Dict[str, dict] = {}
+    want: Dict[str, torch.Tensor] = {}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def run(name, trainer, *, async_save=False, start=0, supervisor=None,
+            recorder=None, keep=False, losses=None, tapped=None,
+            scrape=False):
+        """One train_resilient run; returns its record (and leaves the
+        checkpoints in place when `keep`). `losses` and `tapped` (the
+        resilience events by name) fill the caller's dicts when given,
+        so a preempted run's are kept. With `scrape`, the run's registry
+        is served by a MetricsServer and scraped over HTTP after it."""
+        nonlocal flops
+        ckdir = os.path.join(tmp_root, name)
+        reg = MetricsRegistry()
+        goodput = GoodputLedger(registry=reg)
+        tapped = {} if tapped is None else tapped
+
+        def tap(stream, rec):
+            if stream == "resilience":
+                tapped[rec["evt"]] = tapped.get(rec["evt"], 0) + 1
+
+        if flops is None:
+            flops = causal_lm_step_flops(
+                batch_size=batch, seq_len=cfg["train_seq"],
+                d_model=cfg["lm"]["model_dim"], n_layers=layers,
+                n_params=param_count(trainer.module))
+        monitor = DeviceMemoryMonitor(
+            registry=reg, devices=None if cuda else [device])
+        mgr = CheckpointManager(ckdir, max_to_keep=3, async_save=async_save)
+        losses = {} if losses is None else losses
+        done = []                  # every completed step, redone ones too
+
+        def on_step(step, fetches):
+            losses[step] = float(fetches["loss"])
+            done.append(step)
+
+        add_event_tap(tap)
+        try:
+            with (MetricsServer(reg, port=0) if scrape
+                  else contextlib.nullcontext()) as srv:
+                train_resilient(
+                    trainer, batch_for, steps, mgr, start_step=start,
+                    save_every=every, supervisor=supervisor,
+                    on_step=on_step, registry=reg, goodput=goodput,
+                    flops_per_step=flops, flight_recorder=recorder,
+                    memory_monitor=monitor)
+                body = (urllib.request.urlopen(srv.url, timeout=30).read()
+                        .decode() if scrape else "")
+        finally:
+            remove_event_tap(tap)
+        max_alloc = torch.cuda.max_memory_allocated() if cuda else None
+        phase_ms = reg.get("ptpu_train_phase_ms")
+        mfu = reg.get("ptpu_train_mfu")
+        out = {"losses": [losses[s] for s in sorted(losses)],
+               "steps_run": done,
+               "attempts": len(done) + tapped.get("bad_step_skip", 0),
+               "events": tapped, "ledger_events": goodput.event_counts(),
+               "goodput": goodput.goodput(),
+               "productive_s": goodput.productive_seconds(),
+               "lost_s": goodput.lost_seconds(),
+               "mfu": None if mfu is None else mfu.value,
+               "hbm_peak_bytes": reg.get("ptpu_hbm_peak_bytes").labels(
+                   device="d0").value,
+               "hbm_in_use_bytes": reg.get("ptpu_hbm_bytes_in_use").labels(
+                   device="d0").value,
+               "max_memory_allocated": max_alloc}
+        if phase_ms is not None:
+            # p50 / p99 are the registry's log-bucket estimates; the means
+            # (sum / count) are exact
+            out["phase_ms"] = {
+                ph: {"p50": phase_ms.labels(phase=ph).quantile(0.5),
+                     "p99": phase_ms.labels(phase=ph).quantile(0.99),
+                     "mean": phase_ms.labels(phase=ph).mean()}
+                for ph in ("dispatch", "wait")}
+            step_h = reg.get("ptpu_train_step_ms")
+            out["step_ms_p50"] = step_h.quantile(0.5)
+            out["step_ms_mean"] = step_h.mean()
+            out["compiles"] = reg.get("ptpu_train_compiles").value
+        check(out["ledger_events"] == {k: float(v) for k, v in
+                                       tapped.items()},
+              f"{name}: ledger {out['ledger_events']} != stream {tapped}")
+        if cuda:
+            check(mfu is not None and 0.0 < mfu.value <= 1.0,
+                  f"{name}: MFU gauge {out['mfu']}")
+            check(out["hbm_peak_bytes"] >= max_alloc,
+                  f"{name}: memory gauge peak {out['hbm_peak_bytes']} < "
+                  f"max_memory_allocated {max_alloc}")
+        if scrape:
+            series = ['ptpu_train_phase_ms_bucket{phase="dispatch"',
+                      "ptpu_train_steps_total", "ptpu_train_goodput",
+                      'ptpu_hbm_peak_bytes{device="d0"}',
+                      "ptpu_train_input_wait_ms_bucket"]
+            series += ["ptpu_train_mfu"] if cuda else []
+            out["scraped"] = {x: x in body for x in series}
+            check(all(out["scraped"].values()),
+                  f"{name}: /metrics lacks {out['scraped']}")
+        if not keep:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        return out
+
+    def finish(name, trainer, out):
+        got = _state_leaves(trainer)
+        if not want:
+            want.update(got)
+        out["unequal_leaves"] = sorted(
+            k for k in want if not torch.equal(got[k], want[k]))
+        launches = _expect_launches(FLASH_KERNELS, out["attempts"], layers,
+                                    cuda)
+        out["kernel_launches"] = {k: launches[k] for k in FLASH_KERNELS}
+        runs[name] = out
+        check(out["losses"] == runs["a"]["losses"],
+              f"{name}: losses {out['losses']} != (a)'s")
+        check(not out["unequal_leaves"],
+              f"{name}: state differs from (a) at "
+              f"{out['unequal_leaves'][:5]}")
+
+    try:
+        _reset_launches()
+        trainer = new_trainer()
+        finish("a", trainer, run("a", trainer, scrape=True))
+        del trainer
+        _reset_launches()
+        trainer = new_trainer()
+        finish("b", trainer, run("b", trainer, async_save=True))
+        del trainer
+        with chaos_env(PTPU_CHAOS_NAN_STEP="2:3"):
+            _reset_launches()
+            trainer = new_trainer()
+            finish("c", trainer, run("c", trainer))
+        with chaos_env(PTPU_CHAOS_NAN_STEP=3, PTPU_CHAOS_NAN_ATTEMPTS=3):
+            _reset_launches()
+            trainer = new_trainer()
+            finish("d", trainer, run("d", trainer))
+        del trainer
+        gc.collect()
+
+        # (e): preempted at step 3, resumed by a trainer made anew
+        _reset_launches()
+        trainer = new_trainer()
+        sup_dir = os.path.join(tmp_root, "e")
+
+        def _exit(code):
+            raise _Preempted(code)
+
+        pre_losses: Dict[int, float] = {}
+        pre_events: Dict[str, int] = {}
+        with chaos_env(PTPU_CHAOS_SIGTERM_STEP=3):
+            sup = RunSupervisor(CheckpointManager(sup_dir, max_to_keep=3),
+                                _exit_fn=_exit)
+            try:
+                with sup:
+                    run("e", trainer, supervisor=sup, keep=True,
+                        losses=pre_losses, tapped=pre_events)
+                raise SmokeFailure("(e): the run was not preempted")
+            except _Preempted as e:
+                exit_code = e.args[0]
+        pre = {"exit_code": exit_code, "attempts": trainer.step,
+               "losses": [pre_losses[s] for s in sorted(pre_losses)],
+               "events": pre_events,
+               "checkpoints": sorted(os.listdir(sup_dir))}
+        check(exit_code == PREEMPT_EXIT_CODE and sorted(pre_losses) ==
+              [0, 1, 2] and "ckpt-3" in pre["checkpoints"] and
+              pre_events == {"chaos_inject": 1, "preempt": 1},
+              f"(e): preemption {pre}")
+        del trainer, sup
+        gc.collect()
+        resumed = new_trainer(init=False)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, rstep = CheckpointManager(sup_dir).restore_latest(
+            target=resumed.state())
+        resumed.load_state(ts)
+        if cuda:
+            torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        del ts
+        check(rstep == 3 and resumed.step == 3,
+              f"(e): restored step {rstep}, trainer step {resumed.step}")
+        out = run("e", resumed, start=rstep)
+        out.update(preempted=pre, restore_ms=restore_ms,
+                   attempts=out["attempts"] + pre["attempts"])
+        out["losses"] = pre["losses"] + out["losses"]
+        finish("e", resumed, out)
+        del resumed
+        gc.collect()
+
+        # (f): transient shard-write faults, the final checkpoint torn
+        _reset_launches()
+        trainer = new_trainer()
+        with chaos_env(PTPU_CHAOS_CKPT_IO=2, PTPU_CHAOS_CORRUPT_STEP=steps):
+            out = run("f", trainer, keep=True)
+        rejects: List[dict] = []
+
+        def reject_tap(stream, rec):
+            if stream == "resilience" and rec["evt"] == "ckpt_reject":
+                rejects.append(rec)
+
+        add_event_tap(reject_tap)
+        try:
+            t0 = time.perf_counter()
+            ts, fstep = CheckpointManager(
+                os.path.join(tmp_root, "f")).restore_latest(
+                    target=trainer.state())
+            out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            remove_event_tap(reject_tap)
+        del ts
+        out["fallback"] = {"step": fstep,
+                           "rejected": [r["ckpt"] for r in rejects]}
+        check(fstep == steps - every and
+              [r["ckpt"] for r in rejects] == [f"ckpt-{steps}"],
+              f"(f): fell back to {fstep}, rejected {out['fallback']}")
+        finish("f", trainer, out)
+        shutil.rmtree(os.path.join(tmp_root, "f"), ignore_errors=True)
+        del trainer
+        gc.collect()
+
+        # (g): a first step held past the watchdog
+        _reset_launches()
+        trainer = new_trainer()
+        reg_g = MetricsRegistry()
+        rec = FlightRecorder(streams=("resilience", "obs"),
+                             snapshot_fn=lambda: {"metrics":
+                                                  reg_g.snapshot()},
+                             out_dir=os.path.join(tmp_root, "flightrec"),
+                             registry=reg_g)
+        stalled = _StallFirstStep(trainer, rcfg["stall_s"])
+        with RunSupervisor(CheckpointManager(os.path.join(tmp_root, "g")),
+                           watchdog_timeout_s=rcfg["watchdog_s"]) as sup:
+            out = run("g", stalled, supervisor=sup, recorder=rec)
+        paths = rec.dump_paths()
+        bundle = json.load(open(paths[0])) if len(paths) == 1 else {}
+        out["flightrec"] = {"bundles": len(paths),
+                            "trigger": bundle.get("trigger"),
+                            "context": bundle.get("context"),
+                            "hung_steps": sup.hung_steps}
+        check(len(paths) == 1 and bundle["trigger"] == "watchdog_hang"
+              and bundle["context"]["step"] == 0 and sup.hung_steps == [0],
+              f"(g): flight recorder {out['flightrec']}")
+        finish("g", trainer, out)
+        del trainer, stalled
+        gc.collect()
+    finally:
+        shutil.rmtree(tmp_root, ignore_errors=True)
+
+    expect = {"a": {}, "b": {},
+              "c": {"chaos_inject": 2, "bad_step_skip": 2},
+              "d": {"chaos_inject": 3, "bad_step_skip": 3, "rollback": 1},
+              "e": {}, "f": {"chaos_inject": 3, "retry": 2},
+              "g": {"hang": 1}}
+    got = {k: r["events"] for k, r in runs.items()}
+    emit({"phase": "resilient", "steps": steps, "batch": batch,
+          "seq": cfg["train_seq"],
+          "dtype": str(cfg["dtype"]).replace("torch.", ""),
+          "save_every": every, "bad_step_budget": rcfg["budget"],
+          "flops_per_step": flops, "runs": runs,
+          "device": card["kind"], "nvidia_smi": card["smi"]})
+    check(got == expect, f"event counts {got} != {expect}")
+    return runs
+
+
 OPTIMIZER_CASES = {
     "SGD": (0.05, {}), "Momentum": (0.05, dict(use_nesterov=True)),
     "LarsMomentum": (0.5, dict(lars_coeff=0.1)),
@@ -2469,6 +2840,11 @@ def full_config() -> dict:
                  paged_lens=[300 + 30 * i for i in range(7)] + [512]),
         # resume: the train phase's batch, bf16 Adam, saved after 3 of 6
         resume=dict(steps=6, split=3, batch=4),
+        # resilient: the train path's B x T, 6 steps, saves every 2, a
+        # bad-step budget of 2, a first step held 0.6 s past a 0.2 s
+        # watchdog
+        resilient=dict(steps=6, batch=4, save_every=2, budget=2,
+                       watchdog_s=0.2, stall_s=0.6),
         optim_shapes=[(512, 512), (2048,), (8, 64, 64)],
         # engine_spec: 8 greedy prompts of 256 repeating a 48-token span
         # and two n=4 groups, 32 new tokens each, spec_k 4
@@ -2503,11 +2879,27 @@ def tiny_config() -> dict:
         tvp_batch=2,
         gen=dict(batch=2, lens=(12, 20), new=6, paged_lens=[12, 16, 20]),
         resume=dict(steps=4, split=2, batch=2),
+        resilient=dict(steps=6, batch=2, save_every=2, budget=2,
+                       watchdog_s=0.2, stall_s=0.6),
         optim_shapes=[(4, 4), (6,)],
         spec=dict(k=4, span=12, prompt=40, new=8, groups=2, n=2,
                   eager_new=4),
         tier=dict(prompt=40, new=20, num_blocks=14, roomy_blocks=64,
                   bytes=16 << 20, compress_blocks=4, filler_waves=2))
+
+
+@contextlib.contextmanager
+def quiet_streams(*streams):
+    """Silence the port's event streams `streams` on stdout; restore."""
+    loggers = [logging.getLogger(f"paddle_tpu_torch.{s}") for s in streams]
+    old = [lg.disabled for lg in loggers]
+    for lg in loggers:
+        lg.disabled = True
+    try:
+        yield
+    finally:
+        for lg, was in zip(loggers, old):
+            lg.disabled = was
 
 
 def main(argv=None) -> int:
@@ -2521,65 +2913,70 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); --tiny rehearses on the CPU", file=sys.stderr)
         return 2
-    # the serve stream prints a JSON line per step; keep stdout to phases
-    logging.getLogger("paddle_tpu_torch.serve").disabled = True
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda" if cuda else "cpu")
     cfg = full_config() if cuda else tiny_config()
     torch.manual_seed(SEED)
 
-    card = phase_device(cuda)
-    tensor_cores = phase_build(cfg, cuda)
-    errs = phase_kernel_vs_plain(cfg, device)
-    phase_mixed_vs_promote(cfg, device)
-    errs.update(phase_flash_vs_plain(cfg, device))
-    timing = phase_kernel_time(cfg, device, card)
-    timing.update(phase_flash_time(cfg, device, card))
-    lm = cfg["lm"]
-    tree = causal_lm_tree(SEED, cfg["vocab"], lm["model_dim"],
-                          lm["num_heads"], lm["num_layers"], lm["ffn_dim"])
-    phase_step_vs_dense(cfg, tree, device)
-    phase_graph_vs_eager(cfg, tree, device, card)
-    paths = {"ragged_paged_attention": phase_engine(cfg, tree, device, card),
-             "ragged_paged_attention_mixed": phase_engine_int8(
-                 cfg, tree, device, card)}
-    spec = phase_engine_spec(cfg, tree, device, card)
-    phase_engine_tier(cfg, tree, device, card)
-    paths["paged_attention"] = phase_split_path(cfg, tree, device, card)
-    train = phase_train(cfg, tree, device, card)
-    paths.update(dict.fromkeys(FLASH_KERNELS, train))
-    phase_train_vs_plain(cfg, tree, device)
-    generate = phase_generate(cfg, tree, device, card)
-    phase_resume(cfg, tree, device, card)
-    phase_optimizers(cfg, device)
+    # the event streams print a JSON line per event (the serve stream one
+    # a step); keep stdout to phases (the phases read events by taps)
+    with quiet_streams("serve", "resilience", "obs"):
+        card = phase_device(cuda)
+        tensor_cores = phase_build(cfg, cuda)
+        errs = phase_kernel_vs_plain(cfg, device)
+        phase_mixed_vs_promote(cfg, device)
+        errs.update(phase_flash_vs_plain(cfg, device))
+        timing = phase_kernel_time(cfg, device, card)
+        timing.update(phase_flash_time(cfg, device, card))
+        lm = cfg["lm"]
+        tree = causal_lm_tree(SEED, cfg["vocab"], lm["model_dim"],
+                              lm["num_heads"], lm["num_layers"], lm["ffn_dim"])
+        phase_step_vs_dense(cfg, tree, device)
+        phase_graph_vs_eager(cfg, tree, device, card)
+        paths = {"ragged_paged_attention": phase_engine(cfg, tree, device,
+                                                        card),
+                 "ragged_paged_attention_mixed": phase_engine_int8(
+                     cfg, tree, device, card)}
+        spec = phase_engine_spec(cfg, tree, device, card)
+        phase_engine_tier(cfg, tree, device, card)
+        paths["paged_attention"] = phase_split_path(cfg, tree, device, card)
+        train = phase_train(cfg, tree, device, card)
+        paths.update(dict.fromkeys(FLASH_KERNELS, train))
+        phase_train_vs_plain(cfg, tree, device)
+        generate = phase_generate(cfg, tree, device, card)
+        phase_resume(cfg, tree, device, card)
+        phase_resilient(cfg, tree, device, card)
+        phase_optimizers(cfg, device)
 
-    rows = []
-    for name, (source, replaces, _) in KERNEL_ROWS.items():
-        t = timing[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": paths[name]["kernel_launches"][name],
-            "launched": paths[name]["kernel_launches"][name],
-            "checked": True, "max_abs_err": errs[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "tensor_cores": tensor_cores.get(name, False)})
-        if name == "ragged_paged_attention":
-            rows[-1]["launches_spec"] = \
-                spec["float32"]["kernel_launches"][name]
-        if name == "flash_fwd":
-            rows[-1]["launches_generate"] = {
-                dt: r["kernel_launches"][name] for dt, r in generate.items()}
-    emit({"kernels": rows})
-    if cuda:
-        emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
-                                     "count": card["count"]}})
-    else:
-        emit({"ok": True, "rehearsal": True,
-              "device": {"platform": "cpu", "kind": "cpu", "count": 0}})
-    return 0
+        rows = []
+        for name, (source, replaces, _) in KERNEL_ROWS.items():
+            t = timing[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": paths[name]["kernel_launches"][name],
+                "launched": paths[name]["kernel_launches"][name],
+                "checked": True, "max_abs_err": errs[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "tensor_cores": tensor_cores.get(name, False)})
+            if name == "ragged_paged_attention":
+                rows[-1]["launches_spec"] = \
+                    spec["float32"]["kernel_launches"][name]
+            if name == "flash_fwd":
+                rows[-1]["launches_generate"] = {
+                    dt: r["kernel_launches"][name]
+                    for dt, r in generate.items()}
+        emit({"kernels": rows})
+        if cuda:
+            emit({"ok": True, "device": {"platform": "gpu",
+                                         "kind": card["kind"],
+                                         "count": card["count"]}})
+        else:
+            emit({"ok": True, "rehearsal": True,
+                  "device": {"platform": "cpu", "kind": "cpu", "count": 0}})
+        return 0
 
 
 if __name__ == "__main__":

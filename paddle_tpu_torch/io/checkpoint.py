@@ -27,6 +27,11 @@ place, so a writer that held the tensors would write a later step's
 values. `AsyncCheckpointer` writes that snapshot on a background thread;
 `CheckpointManager` adds `ckpt-{step}` directories, `max_to_keep`
 rotation and a restore that falls back over a corrupt newest checkpoint.
+
+Shard writes and shard reads go through `retry_call` (shared-FS
+hiccups: bounded retries on OSError, drawn from the process's shared
+retry budget), with the `ckpt_write` / `ckpt_read` chaos sites inside
+the retried call; content errors (a CRC mismatch) are not retried.
 """
 
 from __future__ import annotations
@@ -43,13 +48,21 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from paddle_tpu_torch.utils.log import emit_event
+from paddle_tpu_torch.resilience import chaos as _chaos
+from paddle_tpu_torch.resilience.retry import (RetryPolicy, retry_call,
+                                               shared_budget)
+from paddle_tpu_torch.utils.log import resilience_event
 from paddle_tpu_torch.utils.tree import (flatten_with_keys, nest,
                                          unflatten_like)
 
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
 _CKPT_RE = re.compile(r"^ckpt-(\d+)$")
+
+# Shared-FS writes/reads see transient errors (NFS timeouts, object-store
+# 5xx); bounded retries here, content errors (CRC) are NOT retryable.
+_IO_RETRY = RetryPolicy(attempts=3, base_delay=0.1, max_delay=2.0,
+                        retry_on=(OSError,))
 
 
 class CheckpointIntegrityError(RuntimeError, ValueError):
@@ -137,9 +150,13 @@ def _write_snapshot(path: str, snap, step: Optional[int],
     leaves, shards, index = snap
     tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(path)) or ".")
     try:
-        np.savez(os.path.join(tmp, "shards-p0.npz"), **shards)
-        with open(os.path.join(tmp, "shard_index-p0.json"), "w") as f:
-            json.dump(index, f)
+        def write_shards():
+            _chaos.maybe_fail("ckpt_write")
+            np.savez(os.path.join(tmp, "shards-p0.npz"), **shards)
+            with open(os.path.join(tmp, "shard_index-p0.json"), "w") as f:
+                json.dump(index, f)
+        retry_call(write_shards, policy=_IO_RETRY, name="ckpt_write",
+                   budget=shared_budget())
         files = {}
         for name in ("shard_index-p0.json", "shards-p0.npz"):
             crc, size = _crc32_file(os.path.join(tmp, name))
@@ -203,7 +220,13 @@ def _read_leaves(path: str, manifest: dict, wanted: List[int]
             for spans, fname, slot in table.get(i, []):
                 if fname not in files:
                     _verify(path, fname, sums)
-                    files[fname] = np.load(os.path.join(path, fname))
+
+                    def load(fname=fname):
+                        _chaos.maybe_fail("ckpt_read")
+                        return np.load(os.path.join(path, fname))
+                    files[fname] = retry_call(load, policy=_IO_RETRY,
+                                              name="ckpt_read",
+                                              budget=shared_budget())
                 region = tuple(slice(a, b) for a, b in spans)
                 arr[region] = files[fname][slot]
                 filled[region] = True
@@ -383,15 +406,33 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self._async = AsyncCheckpointer() if async_save else None
         os.makedirs(directory, exist_ok=True)
+        # Failure markers (`ckpt-{step}.err-p{K}`) a crashed multi-process
+        # save of a previous run left behind would poison this run's
+        # saves once the port writes across processes; sweep them
+        # before any save starts, as JAX's manager does.
+        for name in os.listdir(directory):
+            if ".err-p" in name:
+                try:
+                    os.remove(os.path.join(directory, name))
+                except OSError:
+                    pass
 
     def save(self, tree, step: int, metadata: Optional[Dict] = None) -> str:
         path = os.path.join(self.directory, f"ckpt-{step}")
         if self._async is not None:
-            return self._async.save(path, tree, step=step,
-                                    metadata=metadata, _after=self._gc)
+            return self._async.save(
+                path, tree, step=step, metadata=metadata,
+                _after=lambda: self._post_commit(path, step))
         save_checkpoint(path, tree, step=step, metadata=metadata)
-        self._gc()
+        self._post_commit(path, step)
         return path
+
+    def _post_commit(self, path: str, step: int) -> None:
+        # chaos corruption happens AFTER commit, so a torn-checkpoint
+        # scenario matches a real torn write: the manifest promises
+        # content the files no longer have
+        _chaos.maybe_corrupt_checkpoint(path, step)
+        self._gc()
 
     def wait(self) -> None:
         if self._async is not None:
@@ -409,9 +450,9 @@ class CheckpointManager:
                 return load_checkpoint(path, target), manifest.get("step")
             except (CheckpointIntegrityError, OSError, ValueError,
                     KeyError) as e:
-                emit_event("resilience", "ckpt_reject",
-                           ckpt=os.path.basename(path), step=step,
-                           reason=f"{type(e).__name__}: {e}")
+                resilience_event("ckpt_reject",
+                                 ckpt=os.path.basename(path), step=step,
+                                 reason=f"{type(e).__name__}: {e}")
         return None, None
 
     def _gc(self) -> None:

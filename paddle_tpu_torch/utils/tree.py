@@ -72,3 +72,10 @@ def nest(flat: Mapping[str, Any]) -> Dict:
             node = node.setdefault(key, {})
         node[leaf] = value
     return tree
+
+
+def map_leaves(fn, tree):
+    """A tree of `tree`'s structure with `fn(leaf)` at every leaf (as
+    jax.tree.map over one tree)."""
+    return unflatten_like(tree, iter(
+        [fn(leaf) for _, leaf in flatten_with_keys(tree)]))

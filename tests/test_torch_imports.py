@@ -40,7 +40,12 @@ def test_scan_covers_the_package():
                 "optim/lr_schedules.py", "core/executor.py",
                 "models/convert.py", "nn/layers.py", "utils/flags.py",
                 "utils/tree.py", "utils/rng.py", "engine/draft.py",
-                "engine/kvtier.py"):
+                "engine/kvtier.py", "utils/log.py",
+                "resilience/errors.py", "resilience/retry.py",
+                "resilience/chaos.py", "resilience/supervisor.py",
+                "obs/goodput.py", "obs/devicemem.py", "obs/flightrec.py",
+                "obs/http.py", "parallel/strategy.py", "parallel/mesh.py",
+                "parallel/trainer.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -70,7 +75,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.optim, paddle_tpu_torch.core, "
             "paddle_tpu_torch.utils.flags, paddle_tpu_torch.utils.tree, "
             "paddle_tpu_torch.utils.rng, paddle_tpu_torch.engine.draft, "
-            "paddle_tpu_torch.engine.kvtier, paddle_tpu_torch; "
+            "paddle_tpu_torch.engine.kvtier, paddle_tpu_torch.obs, "
+            "paddle_tpu_torch.resilience, "
+            "paddle_tpu_torch.resilience.supervisor, "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1058,3 +1058,64 @@ def test_train_step_on_card_matches_cpu(kv_heads):
         scale = float(g.abs().max())
         torch.testing.assert_close(steps["cuda"][1][name], g, rtol=1e-4,
                                    atol=1e-4 * scale + 1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_guarded_nan_burst_on_card_equals_clean_run(tmp_path, monkeypatch,
+                                                    dtype):
+    """`train_resilient` over a guarded MeshTrainer on the card: a NaN
+    burst at steps 2-3 (the float per-token weights poisoned) leaves
+    the loss curve and every state leaf bit-equal to a clean run; the
+    flash kernels launch once a layer on every attempt, the skipped
+    ones included."""
+    _need_card()
+    from paddle_tpu_torch.io import CheckpointManager
+    from paddle_tpu_torch.parallel import DistStrategy, MeshTrainer
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.resilience.supervisor import train_resilient
+    from paddle_tpu_torch.utils.tree import flatten_with_keys
+
+    monkeypatch.setenv("PTPU_RETRY_SCALE", "0")
+    dims = dict(model_dim=64, num_heads=2, num_layers=2, ffn_dim=128)
+    toks = [lm_stream(np.random.default_rng(s), 2, 48, 97) for s in range(5)]
+
+    def batch_for(step):
+        inp, tgt = (torch.from_numpy(x).cuda() for x in toks[step])
+        return inp, tgt, torch.ones(inp.shape, device="cuda")
+
+    def loss_fn(module, batch, generator, training):
+        inp, tgt, w = batch
+        hid = module(inp, return_hidden=True, generator=generator)
+        wt, bias = module.head_weights()
+        per = linear_cross_entropy(
+            hid, wt.to(hid.dtype), tgt,
+            None if bias is None else bias.to(hid.dtype), chunk=256)
+        return (per * w).sum() / w.sum(), {}
+
+    runs = []
+    for name, nan in (("clean", None), ("burst", "2:3")):
+        if nan is None:
+            monkeypatch.delenv("PTPU_CHAOS_NAN_STEP", raising=False)
+        else:
+            monkeypatch.setenv("PTPU_CHAOS_NAN_STEP", nan)
+        chaos.reset()
+        model = CausalLM(97, dropout=0.0, max_len=64, device="cuda",
+                         dtype=dtype, **dims)
+        load_jax_params(model, causal_lm_tree(0, 97, **dims))
+        trainer = MeshTrainer(model, Adam(model.parameters(), 1e-3), loss_fn,
+                              strategy=DistStrategy(bad_step_budget=2))
+        before = flash.flash_fwd.launches
+        losses = {}
+        train_resilient(trainer, batch_for, 5,
+                        CheckpointManager(str(tmp_path / name)),
+                        on_step=lambda s, f, _l=losses: _l.__setitem__(
+                            s, float(f["loss"])))
+        attempts = 5 + (2 if nan else 0)
+        assert flash.flash_fwd.launches - before == attempts * 2
+        runs.append((losses, {k: v.detach().clone() for k, v in
+                              flatten_with_keys(trainer.state())}))
+    chaos.reset()
+    (clean, want), (burst, got) = runs
+    assert burst == clean and sorted(clean) == [0, 1, 2, 3, 4]
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
