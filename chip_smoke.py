@@ -68,9 +68,11 @@ import json
 import logging
 import shutil
 import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -97,6 +99,10 @@ from paddle_tpu_torch.parallel import DistStrategy, MeshTrainer, make_mesh
 from paddle_tpu_torch.resilience import PREEMPT_EXIT_CODE, chaos
 from paddle_tpu_torch.resilience.supervisor import (RunSupervisor,
                                                     train_resilient)
+from paddle_tpu_torch.serve import replica as replica_cli
+from paddle_tpu_torch.serve.router import Router
+from paddle_tpu_torch.serve.sse import (http_get, parse_prometheus_values,
+                                        stream_completion)
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, causal_lm_tree,
                                       decode_as_ragged, flash_case,
@@ -998,6 +1004,22 @@ def phase_engine(cfg: dict, tree: dict, device: torch.device,
     return out
 
 
+def write_export(cfg: dict, tree: dict) -> str:
+    """Write the seeded weights as a v2 export at EXPORT_DIR (the JAX
+    export's layout, with numpy), with the manifest's serve block as
+    engine.serve_metadata writes it. Returns the directory."""
+    lm = cfg["lm"]
+    meta = {"model_type": "causal_lm", "vocab": cfg["vocab"],
+            "model_dim": lm["model_dim"], "num_heads": lm["num_heads"],
+            "num_kv_heads": lm["num_heads"],
+            "head_dim": lm["model_dim"] // lm["num_heads"],
+            "num_layers": lm["num_layers"], "ffn_dim": lm["ffn_dim"],
+            "max_len": cfg["max_len"], "tie_embeddings": True,
+            "fused_qkv": False}
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    return write_serving_export(str(EXPORT_DIR), tree, meta)
+
+
 def phase_engine_int8(cfg: dict, tree: dict, device: torch.device,
                       card: dict) -> dict:
     """The int8-tier path, through `ServeEngine.from_saved_model` over a
@@ -1014,16 +1036,7 @@ def phase_engine_int8(cfg: dict, tree: dict, device: torch.device,
     cuda = device.type == "cuda"
     c = cfg["int8"]
     lm = cfg["lm"]
-    # the manifest's serve block, as engine.serve_metadata writes it
-    meta = {"model_type": "causal_lm", "vocab": cfg["vocab"],
-            "model_dim": lm["model_dim"], "num_heads": lm["num_heads"],
-            "num_kv_heads": lm["num_heads"],
-            "head_dim": lm["model_dim"] // lm["num_heads"],
-            "num_layers": lm["num_layers"], "ffn_dim": lm["ffn_dim"],
-            "max_len": cfg["max_len"], "tie_embeddings": True,
-            "fused_qkv": False}
-    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
-    write_serving_export(str(EXPORT_DIR), tree, meta)
+    write_export(cfg, tree)
     engine_kw = dict(block_size=cfg["block_size"],
                      num_blocks=c["num_blocks"],
                      max_batch_size=cfg["max_batch"],
@@ -1520,6 +1533,335 @@ def phase_engine_tier(cfg: dict, tree: dict, device: torch.device,
            "device": card["kind"], "nvidia_smi": card["smi"]}
     emit({"phase": "engine_tier", **out})
     del model, roomy
+    gc.collect()
+    return out
+
+
+# -- serving over HTTP: replicas, the router, KV transfer ------------------
+
+def _scrape(url: str) -> Dict[str, float]:
+    status, body = http_get(url + "/metrics")
+    check(status == 200, f"{url}/metrics answered {status}")
+    return parse_prometheus_values(body)
+
+
+def _wait_ready(url: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            if http_get(url + "/readyz")[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise SmokeFailure(f"{url}/readyz never answered 200")
+
+
+def _wait_idle(frontends, timeout_s: float = 120.0) -> None:
+    """Until every replica's engine has no work and no open stream."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(not fe.engine.scheduler.has_work() and not fe._active
+               and fe._open_streams == 0 for fe in frontends):
+            return
+        time.sleep(0.02)
+    raise SmokeFailure("the replicas did not drain their work")
+
+
+def _client_stream(url: str, payload: dict, out: dict, key,
+                   stop_after: Optional[int] = None) -> None:
+    """One SSE completion from a client thread: tokens, the seconds to
+    the first token frame and to [DONE], whether [DONE] arrived; with
+    `stop_after`, hang up after that many tokens."""
+    t0 = time.perf_counter()
+    rec = {"tokens": [], "ttft_s": None, "done": False, "status": None}
+    try:
+        s = stream_completion(url, payload, timeout=300.0)
+        rec["status"] = s.status
+        if s.status == 200:
+            for ev in s.events():
+                if "token" in ev:
+                    if rec["ttft_s"] is None:
+                        rec["ttft_s"] = time.perf_counter() - t0
+                    rec["tokens"].append(ev["token"])
+                    if stop_after and len(rec["tokens"]) >= stop_after:
+                        s.close()
+                        break
+            rec["done"] = s.done
+        else:
+            s.close()
+    except Exception as e:            # recorded; the phase checks it
+        rec["error"] = repr(e)
+    rec["total_s"] = time.perf_counter() - t0
+    out[key] = rec
+
+
+def _spawn_replica(args: List[str]) -> Tuple[subprocess.Popen, str]:
+    """`python -m paddle_tpu_torch.serve.replica <args>` from this
+    checkout: returns the process and its url, read from the
+    `serve_listening` line; a thread drains the rest of its stdout."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serve.replica", *args],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    port = None
+    for line in proc.stdout:
+        if '"serve_listening"' in line:
+            port = json.loads(line)["port"]
+            break
+    if port is None:
+        err = proc.stderr.read()[-2000:]
+        proc.kill()
+        proc.wait(timeout=30)
+        raise SmokeFailure(f"the replica process never listened: {err}")
+    for stream in (proc.stdout, proc.stderr):
+        threading.Thread(target=stream.read, daemon=True).start()
+    return proc, f"http://127.0.0.1:{port}"
+
+
+def phase_serve_http(cfg: dict, tree: dict, device: torch.device,
+                     card: dict) -> dict:
+    """The serve layer at full width, as a user runs it: an export of the
+    seeded weights served by two replicas built through the replica
+    CLI's `build_frontend` (a `--phase prefill` one with a host tier, a
+    `--phase decode` one), one after the other, behind an in-process
+    `Router` with the prefix directory and KV-transfer hints. The
+    replicas build the model from the export in float32, as the JAX
+    replica does. Checks:
+    - /readyz, and `ptpu_engine_compiles` 1 on each replica's scrape
+      before and after the traffic;
+    - greedy completions over SSE through the router from concurrent
+      client threads (half share a prefix and go to the prefill
+      replica, half are short and go to the decode replica) equal a
+      direct engine's streams token for token;
+    - a client that hangs up after a few tokens is cancelled, and both
+      pools quiesce after the drain;
+    - a decode-heavy request on the shared prefix goes to the decode
+      replica, which pulls the prefix's blocks from the prefill
+      replica's /kvblocks (blocks > 0, no fallback) and streams what the
+      direct engine streams warm;
+    - kernel 1 launched once a layer a step of the two engines together;
+    - a replica process (`python -m paddle_tpu_torch.serve.replica
+      --model-dir ...`) streams a completion and exits 75 on SIGTERM.
+    Client times are on the host clock."""
+    cuda = device.type == "cuda"
+    sc = cfg["serve_http"]
+    t_phase = time.perf_counter()
+    export = write_export(cfg, tree)
+    vocab, bs, layers = cfg["vocab"], cfg["block_size"], \
+        cfg["lm"]["num_layers"]
+    common = ["--model-dir", export, "--port", "0",
+              "--block-size", str(bs), "--num-blocks", str(cfg["num_blocks"]),
+              "--max-batch-size", str(cfg["max_batch"]),
+              "--max-prefill-tokens", str(cfg["max_prefill"]),
+              "--tile-q", str(cfg["tile_q"]), "--drain-deadline-s", "30",
+              "--max-queue-depth", "256",
+              # admission must not shed this traffic: the SLO gates are
+              # the replica's own business, not this check's
+              "--slo-ttft-ms", "1e9", "--slo-tpot-ms", "1e9",
+              "--slo-queue-wait-ms", "1e9"]
+    if not cuda:
+        common += ["--device", "cpu"]
+    tier = ["--host-tier-bytes", str(sc["tier_bytes"])]
+    t0 = time.perf_counter()
+    frontends = {}
+    # one after the other: two engines must not capture at once
+    for phase in ("prefill", "decode"):
+        a = replica_cli.build_parser().parse_args(
+            common + tier + ["--phase", phase])
+        frontends[phase] = replica_cli.build_frontend(a).start()
+    boot_s = time.perf_counter() - t0
+    fes = list(frontends.values())
+    router = Router([fe.url for fe in fes], enable_directory=True,
+                    kv_transfer=True, enable_hedge=False,
+                    scrape_interval_s=30.0).start()
+    proc = None
+    try:
+        for fe in fes:
+            _wait_ready(fe.url)
+            check(fe.engine.device.type == device.type,
+                  f"replica serves on {fe.engine.device}")
+        compiles_before = {p: _scrape(fe.url)["ptpu_engine_compiles"]
+                           for p, fe in frontends.items()}
+        check(all(v == 1.0 for v in compiles_before.values()),
+              f"compile gauges before the traffic: {compiles_before}")
+        router.scrape_now(wait_s=10.0)
+        phases = {r.url: r.phase for r in router.replicas}
+        check(sorted(phases.values()) == ["decode", "prefill"],
+              f"the router read phases {phases}")
+
+        rng = np.random.default_rng(SEED + 60)
+        new = sc["new"]
+        prefix = rng.integers(0, vocab, sc["prefix"]).tolist()
+        lo, hi = sc["suffix"]
+        shared = [prefix + rng.integers(0, vocab, int(n)).tolist()
+                  for n in np.linspace(lo, hi, sc["requests"] // 2)]
+        short = [rng.integers(0, vocab, int(n)).tolist()
+                 for n in np.linspace(*sc["short"], sc["requests"] // 2)]
+        prompts = shared + short
+        _reset_launches()                          # the path's counts
+        results: Dict = {}
+        threads = [threading.Thread(
+            target=_client_stream,
+            args=(router.url, {"prompt": p, "max_new_tokens": new},
+                  results, i)) for i, p in enumerate(prompts)]
+        gone_prompt = rng.integers(0, vocab, sc["short"][0]).tolist()
+        threads.append(threading.Thread(
+            target=_client_stream,
+            args=(router.url, {"prompt": gone_prompt,
+                               "max_new_tokens": sc["gone_new"]},
+                  results, "gone"), kwargs={"stop_after": 4}))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wave_s = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        bad = {k: r for k, r in results.items() if k != "gone"
+               and not (r["status"] == 200 and r["done"]
+                        and len(r["tokens"]) == new)}
+        check(not bad, f"streams that failed or were cut: {bad}")
+        gone = results["gone"]
+        check(gone["status"] == 200 and len(gone["tokens"]) == 4
+              and not gone["done"], f"the disconnecting client: {gone}")
+        _wait_idle(fes)
+        cancelled = sum(fe.engine.obs.get("ptpu_serve_requests_total")
+                        .labels(reason="cancelled").value for fe in fes)
+        check(cancelled == 1, f"{cancelled} requests cancelled (want 1)")
+        for fe in fes:
+            fe.engine.cache.assert_quiesced()
+        served = {p: fe.engine.obs.get("ptpu_serve_requests_total")
+                  .labels(reason="length").value
+                  for p, fe in frontends.items()}
+        check(all(v > 0 for v in served.values()),
+              f"a replica served nothing: {served}")
+
+        # the KV transfer: a decode-heavy request on the shared prefix
+        time.sleep(0.4)                # a directory refresh on each
+        router.scrape_now(wait_s=10.0)
+        xfer_prompt = prefix + rng.integers(0, vocab, bs).tolist()
+        check(len(xfer_prompt) < 2 * sc["xfer_new"],
+              "the transfer request must be decode-heavy")
+        xfer: Dict = {}
+        _client_stream(router.url, {"prompt": xfer_prompt,
+                                    "max_new_tokens": sc["xfer_new"]},
+                       xfer, 0)
+        xfer = xfer[0]
+        check(xfer["status"] == 200 and xfer["done"]
+              and len(xfer["tokens"]) == sc["xfer_new"],
+              f"the transfer request: {xfer}")
+        dec = frontends["decode"].engine.obs
+        kvx = {name: dec.get(f"ptpu_kvxfer_{name}_total").value
+               for name in ("blocks", "bytes", "pulls", "fallbacks")}
+        check(kvx["blocks"] >= sc["prefix"] // bs and kvx["fallbacks"] == 0,
+              f"the decode replica's pull: {kvx}")
+        hints = router.obs.get("ptpu_router_kvxfer_hints_total").value
+        check(hints >= 1, "the router attached no transfer hint")
+
+        # the router's added latency: the same 1-token request straight
+        # to the replica the router routes it to, and through the router,
+        # alternated
+        probe = {"prompt": short[0][:8], "max_new_tokens": 1}
+        target = router._plan(probe["prompt"],
+                              probe["max_new_tokens"])[0][0].url
+        lat = {"direct": [], "router": []}
+        for i in range(2 * sc["latency_pairs"]):
+            which = ("direct", "router")[i % 2]
+            url = target if which == "direct" else router.url
+            rec: Dict = {}
+            _client_stream(url, probe, rec, 0)
+            check(rec[0]["done"], f"latency probe {which}: {rec[0]}")
+            lat[which].append(rec[0]["total_s"] * 1e3)
+        _wait_idle(fes)
+        steps = {p: fe.engine.steps for p, fe in frontends.items()}
+        launches = _expect_launches("ragged_paged_attention",
+                                    sum(steps.values()), layers, cuda)
+        compiles_after = {p: _scrape(fe.url)["ptpu_engine_compiles"]
+                          for p, fe in frontends.items()}
+        check(all(v == 1.0 for v in compiles_after.values()),
+              f"compile gauges after the traffic: {compiles_after}")
+        for fe in fes:
+            check_one_program(fe.engine, cuda)
+            fe.engine.cache.assert_quiesced()
+        replica_ttft = {p: fe.engine.obs.get("ptpu_serve_ttft_ms")
+                        .quantile(0.5) for p, fe in frontends.items()}
+        # what the engine thread spends on each /kvprefixes + /debug
+        # refresh (every --dir-interval-s), at this pool's contents;
+        # the loops are idle, so reading from here is safe
+        snapshot = {}
+        for p, fe in frontends.items():
+            t0 = time.perf_counter()
+            rows = fe.engine.kv_prefix_directory()
+            fe.engine.debug_state()
+            snapshot[p] = {"ms": (time.perf_counter() - t0) * 1e3,
+                           "rows": len(rows)}
+
+        # the direct engine: the same options on the card, outside the
+        # counted window
+        direct = ServeEngine.from_saved_model(
+            export, device=device, registry=MetricsRegistry(),
+            block_size=bs, num_blocks=cfg["num_blocks"],
+            max_batch_size=cfg["max_batch"],
+            max_prefill_tokens=cfg["max_prefill"], tile_q=cfg["tile_q"])
+        want = direct.generate(prompts, max_new_tokens=new)
+        same = [results[i]["tokens"] == w for i, w in enumerate(want)]
+        check(all(same), f"HTTP streams != the direct engine's: {same}")
+        warm = direct.generate([xfer_prompt],
+                               max_new_tokens=sc["xfer_new"])[0]
+        check(xfer["tokens"] == warm,
+              "the pulled stream != the direct engine's warm stream")
+        del direct
+
+        # a replica process on the card
+        t0 = time.perf_counter()
+        proc, url = _spawn_replica(common)
+        _wait_ready(url)
+        sub_boot_s = time.perf_counter() - t0
+        rec = {}
+        _client_stream(url, {"prompt": prompts[0],
+                             "max_new_tokens": new}, rec, 0)
+        check(rec[0]["done"] and rec[0]["tokens"] == want[0],
+              f"the replica process's stream: {rec[0]}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        check(code == PREEMPT_EXIT_CODE,
+              f"the replica process exited {code} on SIGTERM (want 75)")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        router.stop()
+        for fe in fes:
+            fe.stop()
+
+    ttft = [results[i]["ttft_s"] * 1e3 for i in range(len(prompts))]
+    tokens = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
+    out = {"requests": len(prompts), "new_tokens": new,
+           "phase_s": time.perf_counter() - t_phase,
+           "prefix": sc["prefix"], "suffix": list(sc["suffix"]),
+           "short": list(sc["short"]), "dtype": "float32",
+           "boot_s": boot_s, "wave_s": wave_s,
+           "client_ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "client_ttft_p99_ms": float(np.percentile(ttft, 99)),
+           "tokens_per_s": tokens / wave_s,
+           "replica_ttft_p50_ms": replica_ttft,
+           "router_added_ms": float(np.median(lat["router"])
+                                    - np.median(lat["direct"])),
+           "direct_1tok_ms_p50": float(np.median(lat["direct"])),
+           "dir_snapshot": snapshot,
+           "latency_probe_replica": next(
+               p for p, fe in frontends.items() if fe.url == target),
+           "router_1tok_ms_p50": float(np.median(lat["router"])),
+           "served": served, "steps": steps, "layers": layers,
+           "kernel_launches": launches, "cancelled": cancelled,
+           "kvxfer": kvx, "kvxfer_hints": hints,
+           "compiles_before": compiles_before,
+           "compiles_after": compiles_after,
+           "streams_equal_direct": True, "process_exit": code,
+           "process_boot_s": sub_boot_s,
+           "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "serve_http", **out})
     gc.collect()
     return out
 
@@ -2855,7 +3197,16 @@ def full_config() -> dict:
         # sequences; two filler waves recycle the cached-free blocks; a
         # 256 MB host tier holds them all
         tier=dict(prompt=200, new=32, num_blocks=110, roomy_blocks=1024,
-                  bytes=256 << 20, compress_blocks=32, filler_waves=2))
+                  bytes=256 << 20, compress_blocks=32, filler_waves=2),
+        # serve_http: 16 greedy completions of 32 tokens through the
+        # router, 8 on a 256-token prefix with suffixes of 16-1200 (to the
+        # prefill replica) and 8 of 20-60 tokens (to the decode replica);
+        # a client that leaves after 4 of 256 tokens; a 272-token request
+        # on the prefix for 160 tokens (decode-heavy: the decode replica
+        # pulls the prefix); a 1 GB host tier on each replica
+        serve_http=dict(prefix=256, suffix=(16, 1200), short=(20, 60),
+                        requests=16, new=32, gone_new=256, xfer_new=160,
+                        tier_bytes=1 << 30, latency_pairs=16))
 
 
 def tiny_config() -> dict:
@@ -2885,7 +3236,10 @@ def tiny_config() -> dict:
         spec=dict(k=4, span=12, prompt=40, new=8, groups=2, n=2,
                   eager_new=4),
         tier=dict(prompt=40, new=20, num_blocks=14, roomy_blocks=64,
-                  bytes=16 << 20, compress_blocks=4, filler_waves=2))
+                  bytes=16 << 20, compress_blocks=4, filler_waves=2),
+        serve_http=dict(prefix=32, suffix=(4, 60), short=(5, 10),
+                        requests=8, new=6, gone_new=40, xfer_new=30,
+                        tier_bytes=16 << 20, latency_pairs=2))
 
 
 @contextlib.contextmanager
@@ -2940,6 +3294,7 @@ def main(argv=None) -> int:
                      cfg, tree, device, card)}
         spec = phase_engine_spec(cfg, tree, device, card)
         phase_engine_tier(cfg, tree, device, card)
+        serve_http = phase_serve_http(cfg, tree, device, card)
         paths["paged_attention"] = phase_split_path(cfg, tree, device, card)
         train = phase_train(cfg, tree, device, card)
         paths.update(dict.fromkeys(FLASH_KERNELS, train))
@@ -2964,6 +3319,8 @@ def main(argv=None) -> int:
             if name == "ragged_paged_attention":
                 rows[-1]["launches_spec"] = \
                     spec["float32"]["kernel_launches"][name]
+                rows[-1]["launches_serve_http"] = \
+                    serve_http["kernel_launches"][name]
             if name == "flash_fwd":
                 rows[-1]["launches_generate"] = {
                     dt: r["kernel_launches"][name]

@@ -70,8 +70,11 @@ Three features ride that determinism with no new program:
 package (`save_inference_model(..., serve_meta=serve_metadata(model))`),
 reading it without JAX (io/checkpoint.py).
 
-Not ported yet (ROADMAP.md): tensor-parallel serving (`tp_size`), and
-the serve layer's engine methods (`kv_prefix_directory`, `debug_state`).
+The serve layer (paddle_tpu_torch/serve/) reads the engine through
+`kv_prefix_directory` (the /kvprefixes advertisement) and `debug_state`
+(/debug and the flight recorder), between steps on its engine thread.
+
+Not ported yet (ROADMAP.md): tensor-parallel serving (`tp_size`).
 """
 
 from __future__ import annotations
@@ -86,7 +89,8 @@ import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.engine.draft import NgramDrafter
-from paddle_tpu_torch.engine.kvtier import HostKVTier, to_torch
+from paddle_tpu_torch.engine.kvtier import (HostKVTier, prefix_digest,
+                                           to_torch)
 from paddle_tpu_torch.engine.paged_cache import PagedKVCache
 from paddle_tpu_torch.engine.scheduler import (RUNNING, Request, Scheduler,
                                                StepRow)
@@ -642,6 +646,70 @@ class ServeEngine:
         """Whether this engine's step reads int8-resident blocks in place
         (no promote round trip)."""
         return self.cache.compress_enabled and self.cache.direct_read_enabled
+
+    def kv_prefix_directory(self, limit: int = 512) -> List[dict]:
+        """This replica's fleet-directory advertisement: the warm
+        prefixes it can serve without re-prefill, as {len, digest, tier}
+        rows (device = prefix-index entries, device_int8 = in-device
+        compressed entries, host = tier entries). Digests are crc32 over
+        little-endian u32 token ids, the encoding the router's
+        prefix_shard hashes. Engine-loop thread only (reads the unlocked
+        prefix index); the serve front-end snapshots it between steps."""
+        out = [{"len": len(key), "digest": prefix_digest(key),
+                "tier": "device"}
+               for key in self.cache.prefix_keys(limit)]
+        if self.cache.compress_enabled:
+            out.extend({"len": len(key), "digest": prefix_digest(key),
+                        "tier": "device_int8"}
+                       for key in self.cache.compressed_keys(limit))
+        if self.host_tier is not None:
+            out.extend({"len": ln, "digest": dg, "tier": "host"}
+                       for ln, dg in self.host_tier.advertised(limit))
+        return out
+
+    @staticmethod
+    def _request_summary(req: Request) -> dict:
+        return {
+            "req_id": req.req_id,
+            "state": req.state,
+            "prompt_len": len(req.prompt),
+            "generated": req.num_generated,
+            "prefill_pos": req.prefill_pos,
+            "cached_tokens": req.cached_tokens,
+            "preemptions": req.preemptions,
+            "deadline": None if req.deadline == float("inf")
+            else req.deadline,
+            "n_candidates": req.n_candidates,
+        }
+
+    def debug_state(self) -> dict:
+        """Introspection snapshot for /debug and the flight recorder: the
+        wait queue and running set as request summaries, block-pool
+        occupancy, and the host-tier summary. Engine-loop thread for a
+        consistent view; the flight recorder may also call it from a
+        watchdog thread while the engine loop is wedged: it only reads,
+        so a torn read is the worst case."""
+        pool = {
+            "num_blocks": self.cache.num_blocks,
+            "block_size": self.cache.block_size,
+            "free_blocks": self.cache.free_blocks,
+            "used_blocks": self.cache.used_blocks,
+            "shared_blocks": self.cache.shared_blocks,
+            "occupancy": round(self.cache.occupancy(), 4),
+        }
+        out = {
+            "steps": self.steps,
+            "queue_depth": self.scheduler.queue_depth,
+            "waiting": [self._request_summary(r)
+                        for r in self.scheduler.waiting],
+            "running": [self._request_summary(r)
+                        for r in self.scheduler.running],
+            "pool": pool,
+            "cache": self.cache.stats(),
+        }
+        if self.host_tier is not None:
+            out["host_tier"] = self.host_tier.stats()
+        return out
 
     def _step_mixed(self, rows: List[StepRow]
                     ) -> "tuple[int, int, int, int]":

@@ -839,6 +839,13 @@ class PagedKVCache:
                              f"> max {max_blocks}")
         return table + [0] * (max_blocks - len(table))
 
+    def prefix_keys(self, limit: int = 512) -> List[tuple]:
+        """Most recently indexed prefix keys (device tier): the engine's
+        half of the fleet prefix directory advertisement. Engine-loop
+        thread only (reads the unlocked index)."""
+        keys = list(self._index.keys())
+        return keys[-limit:] if limit and len(keys) > limit else keys
+
     def compressed_keys(self, limit: int = 512) -> List[tuple]:
         """Most recently touched compressed-tier keys (hottest last)."""
         keys = list(self._cindex.keys())

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -418,6 +419,12 @@ def _check_smem(smem: int, what: str) -> None:
                          f"over the card's {_MAX_SMEM_BYTES}")
 
 
+# one lock over every update of the launch counters: an update is a read
+# and a write, and engines on several threads (replicas of one process)
+# launch and replay their graphs concurrently
+COUNT_LOCK = threading.Lock()
+
+
 def _launch(q, k_pool, v_pool, ints, num_tiles: int, scale: float,
             quant=()) -> torch.Tensor:
     """One call of the kernel pair: kernel 1 (fp pools; `ints` the five
@@ -453,12 +460,13 @@ def _launch(q, k_pool, v_pool, ints, num_tiles: int, scale: float,
                                          out)],
                 None if ws is None else ws.data_ptr(), *shape, stream)
     _raise_on(lib, rc, name)
-    if decode:
-        paged_attention.launches += 1
-    elif quant:
-        ragged_paged_attention.mixed_launches += 1
-    else:
-        ragged_paged_attention.launches += 1
+    with COUNT_LOCK:
+        if decode:
+            paged_attention.launches += 1
+        elif quant:
+            ragged_paged_attention.mixed_launches += 1
+        else:
+            ragged_paged_attention.launches += 1
     return out
 
 
@@ -568,7 +576,10 @@ class CapturedLaunches:
     `record` raised each counter, and puts every counter back; `replay()`
     adds that rise, once a replay. `counters` are (object, attribute)
     pairs, by default this module's; any captured callable can pass its
-    wrappers' own."""
+    wrappers' own. A replay's update holds COUNT_LOCK, so engines
+    replaying on several threads count every launch; a capture puts the
+    counters back to where they stood before it, so two engines must
+    not capture at the same time."""
 
     def __init__(self, counters=LAUNCH_COUNTERS):
         self.counters = tuple(counters)
@@ -592,9 +603,11 @@ class CapturedLaunches:
             self.per_replay = tuple(
                 a - b for a, b in zip(self._read(), before))
         finally:
-            self._write(start)
+            with COUNT_LOCK:
+                self._write(start)
         return out
 
     def replay(self) -> None:
-        self._write(tuple(v + n for v, n in
-                          zip(self._read(), self.per_replay)))
+        with COUNT_LOCK:
+            self._write(tuple(v + n for v, n in
+                              zip(self._read(), self.per_replay)))

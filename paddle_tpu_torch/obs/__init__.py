@@ -2,9 +2,16 @@
 
 - `metrics` — thread-safe Counter/Gauge/Histogram registry, Prometheus
   text exposition and `obs_snapshot` JSON lines;
-- `tracing` — per-request lifecycle spans as a Chrome trace;
+- `tracing` — per-request lifecycle spans as a Chrome trace, merged
+  with host spans (`merged_chrome_trace`) or stitched across processes
+  by fleet trace id (`stitch_fragments`);
 - `http` — stdlib-only scrape server: `/metrics`, `/healthz`,
   `/readyz`, mountable extra routes;
+- `slo` — SLOMonitor: objectives over the live registry, multi-window
+  burn rates, `/slo` verdict — what the serve front-end's admission
+  control and the replica gauges read;
+- `fleetmetrics` — federation of per-replica expositions into one
+  fleet-wide scrape body (`/metrics/fleet` on the router);
 - `flightrec` — FlightRecorder: bounded ring of recent events plus a
   state snapshot, dumped as a postmortem bundle on a watchdog stall or
   a crash;
@@ -25,8 +32,19 @@ from paddle_tpu_torch.obs.metrics import (
     default_registry,
     log_buckets,
 )
-from paddle_tpu_torch.obs.tracing import RequestTracer
+from paddle_tpu_torch.obs.tracing import (
+    RequestTracer,
+    merged_chrome_trace,
+    stitch_fragments,
+)
 from paddle_tpu_torch.obs.http import MetricsServer, json_route, obs_response
+from paddle_tpu_torch.obs.slo import SLOMonitor, SLOObjective, default_objectives
+from paddle_tpu_torch.obs.fleetmetrics import (
+    counter_totals,
+    federate,
+    histogram_buckets,
+    parse_exposition,
+)
 from paddle_tpu_torch.obs.flightrec import FlightRecorder
 from paddle_tpu_torch.obs.goodput import (
     GoodputLedger,
@@ -40,8 +58,10 @@ from paddle_tpu_torch.obs.devicemem import DeviceMemoryMonitor
 __all__ = [
     "DEFAULT_BUCKETS", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "Snapshotter", "default_registry", "log_buckets",
-    "RequestTracer",
+    "RequestTracer", "merged_chrome_trace", "stitch_fragments",
     "MetricsServer", "json_route", "obs_response",
+    "SLOMonitor", "SLOObjective", "default_objectives",
+    "counter_totals", "federate", "histogram_buckets", "parse_exposition",
     "FlightRecorder",
     "GoodputLedger", "MFUMeter", "causal_lm_step_flops", "param_count",
     "resolve_peak_flops",

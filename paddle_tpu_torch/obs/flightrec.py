@@ -16,8 +16,9 @@ JSON bundle:
 Triggers wired by `train_resilient` (resilience/supervisor.py):
 - watchdog stall       — RunSupervisor.on_hang fires mid-step;
 - training crash       — a step raises.
-The JAX package's serve front-end adds SLO burn, drain deadline and
-serve-loop crash triggers; the port's serve layer is still to come.
+The serve front-end (serve/frontend.py) wires a watchdog stall of an
+engine step, SLO burn onset, the drain deadline and an engine-loop
+crash.
 
 `snapshot_fn` is typically a metrics-registry snapshot (training) or
 the engine's debug state (serving). It is called

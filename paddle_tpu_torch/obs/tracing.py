@@ -1,10 +1,13 @@
 """Per-request lifecycle tracing for the serve engine.
 
-Port of paddle_tpu/obs/tracing.py's RequestTracer (the class is a copy;
-the profiler-merging helpers `merged_chrome_trace`/`stitch_fragments`
-wait for the profiler port). `now_us` is a copy of
-paddle_tpu/profiler/profiler.py's clock, so traces of either package
-share one epoch-anchored timeline.
+Port of paddle_tpu/obs/tracing.py (RequestTracer, `merged_chrome_trace`
+and `stitch_fragments` are copies). `now_us` is a copy of
+paddle_tpu/profiler/profiler.py's clock and `Timeline` of
+paddle_tpu/profiler/timeline.py's merger, so traces of either package
+share one epoch-anchored timeline and stitch into one trace. The port
+records no host profiler spans yet (`profiler/` is ROADMAP.md item 10),
+so `merged_chrome_trace`'s "engine host" process carries only its
+process row — what JAX's gives when its profiler was not started.
 
 Each request's life is a sequence of host-side SPANS —
 queued -> prefill -> decode, re-entering queued on preemption — plus
@@ -277,3 +280,70 @@ class RequestTracer:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_chrome_trace(), f)
+
+
+class Timeline:
+    """Accumulates events from named profiles into one Chrome trace
+    (paddle_tpu/profiler/timeline.py's merger): each profile gets its
+    own pid and process_name row; thread_name rows survive."""
+
+    def __init__(self):
+        self._events: List[dict] = []
+        self._pid = 0
+
+    def add_profile(self, name: str, profile: dict) -> None:
+        pid = self._pid
+        self._pid += 1
+        self._events.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": name},
+        })
+        for ev in profile.get("traceEvents", []):
+            # the source's process_name is superseded by `name`, but
+            # thread_name rows (the request tracer's "req N" labels)
+            # must survive the merge
+            if ev.get("ph") == "M" and ev.get("name") != "thread_name":
+                continue
+            ev = dict(ev)
+            ev["pid"] = pid
+            self._events.append(ev)
+
+    def trace(self) -> dict:
+        return {"traceEvents": self._events, "displayTimeUnit": "ms"}
+
+
+def merged_chrome_trace(tracer: RequestTracer,
+                        include_host_spans: bool = True,
+                        path: Optional[str] = None) -> dict:
+    """Merge the request-lifecycle trace with the host spans into ONE
+    Chrome trace via the multi-process timeline merger — request rows
+    and host spans share the epoch-anchored clock, so they line up
+    without shifting."""
+    tl = Timeline()
+    if include_host_spans:
+        # the port records no host profiler spans yet: the host process
+        # gets its row and nothing under it
+        tl.add_profile("engine host", {"traceEvents": []})
+    tl.add_profile("serve requests", tracer.to_chrome_trace())
+    trace = tl.trace()
+    if path:
+        with open(path, "w") as f:
+            json.dump(trace, f)
+    return trace
+
+
+def stitch_fragments(fragments: List[Tuple[str, dict]],
+                     trace_id: Optional[str] = None) -> dict:
+    """Stitch per-process trace fragments (label, chrome-trace dict)
+    into ONE Chrome trace with a distinct pid per process — the
+    router's /trace/<id> body. Fragments share the epoch-anchored
+    clock, so no time shifting is needed; the timeline merger re-pids
+    each profile and keeps thread_name metadata."""
+    tl = Timeline()
+    for label, frag in fragments:
+        if frag:
+            tl.add_profile(label, frag)
+    trace = tl.trace()
+    if trace_id:
+        trace["trace_id"] = trace_id
+    return trace

@@ -209,8 +209,8 @@ def maybe_corrupt_checkpoint(path: str, step: Optional[int]) -> None:
 def maybe_corrupt_kvxfer(data: bytes) -> bytes:
     """Flip bytes mid-payload in the first PTPU_CHAOS_KVXFER_CORRUPT
     kv-transfer blobs THIS process pulls (the serve layer's KV transfer,
-    paddle_tpu/serve/kvxfer.py in the JAX package, calls it on every
-    fetched /kvblocks body) — bit rot on the fleet wire. The
+    serve/kvxfer.py, calls it on every fetched /kvblocks body) — bit
+    rot on the fleet wire. The
     puller's crc check must reject the blob and fall back to plain
     re-prefill; the chaos matrix (tools/chaos_sweep.py kvxfer:corrupt)
     asserts exactly that. Same budget contract as every other knob:

@@ -45,7 +45,11 @@ def test_scan_covers_the_package():
                 "resilience/chaos.py", "resilience/supervisor.py",
                 "obs/goodput.py", "obs/devicemem.py", "obs/flightrec.py",
                 "obs/http.py", "parallel/strategy.py", "parallel/mesh.py",
-                "parallel/trainer.py"):
+                "parallel/trainer.py", "obs/slo.py", "obs/fleetmetrics.py",
+                "obs/tracing.py", "serve/__init__.py", "serve/sse.py",
+                "serve/tokenizer.py", "serve/aio.py", "serve/kvxfer.py",
+                "serve/frontend.py", "serve/router.py",
+                "serve/replica.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -78,7 +82,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.engine.kvtier, paddle_tpu_torch.obs, "
             "paddle_tpu_torch.resilience, "
             "paddle_tpu_torch.resilience.supervisor, "
-            "paddle_tpu_torch.parallel, paddle_tpu_torch; "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch.obs.slo, "
+            "paddle_tpu_torch.obs.fleetmetrics, paddle_tpu_torch.serve, "
+            "paddle_tpu_torch.serve.sse, paddle_tpu_torch.serve.tokenizer, "
+            "paddle_tpu_torch.serve.aio, paddle_tpu_torch.serve.kvxfer, "
+            "paddle_tpu_torch.serve.frontend, "
+            "paddle_tpu_torch.serve.router, "
+            "paddle_tpu_torch.serve.replica, paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

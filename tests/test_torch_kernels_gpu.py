@@ -1119,3 +1119,41 @@ def test_guarded_nan_burst_on_card_equals_clean_run(tmp_path, monkeypatch,
     assert burst == clean and sorted(clean) == [0, 1, 2, 3, 4]
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_replica_on_card_streams_through_the_graph():
+    """An in-process port replica on the card (the CLI's default
+    device): one SSE completion streams to [DONE] with the tokens a
+    direct engine on the same seeded weights gives, the scrape reads
+    `ptpu_engine_compiles` 1, the engine holds its one captured graph,
+    and kernel 1 launched once a layer a step."""
+    _need_card()
+    from paddle_tpu_torch.serve import replica
+    from paddle_tpu_torch.serve.sse import (collect_stream, http_get,
+                                            parse_prometheus_values)
+
+    # the CLI's default dims have head dim 4; the kernel takes multiples
+    # of 8
+    a = replica.build_parser().parse_args(
+        ["--port", "0", "--model-dim", "32", "--num-heads", "4"])
+    fe = replica.build_frontend(a)
+    assert fe.engine.device.type == "cuda"
+    before = paged.ragged_paged_attention.launches
+    fe.start()
+    try:
+        out = collect_stream(fe.url, {"prompt": [5, 9, 2, 7],
+                                      "max_new_tokens": 8})
+        assert out["status"] == 200 and out["done"]
+        vals = parse_prometheus_values(http_get(fe.url + "/metrics")[1])
+        assert vals["ptpu_engine_compiles"] == 1.0
+        assert len(fe.engine.step_graph.graphs) == 1
+        # warm-up steps were zeroed by the reset; count them back in
+        launched = paged.ragged_paged_attention.launches - before
+        assert launched % a.num_layers == 0 and launched > 0
+    finally:
+        fe.stop()
+    direct = ServeEngine(replica.seeded_causal_lm(a, torch.device("cuda")),
+                         registry=MetricsRegistry(), max_batch_size=4,
+                         block_size=4, num_blocks=64, max_prefill_tokens=64)
+    assert out["tokens"] == direct.generate([[5, 9, 2, 7]],
+                                            max_new_tokens=8)[0]

@@ -1,7 +1,7 @@
 """The port's in-device int8 KV tier against the JAX package's.
 
-Mirrors tests/test_kvcompress.py (its host-tier and router cases wait
-for those modules: the port has no host tier yet):
+Mirrors tests/test_kvcompress.py (its host-tier cases live in
+tests/test_torch_kvtier.py):
 
 - the codec: `quantize_block`/`dequantize_block` are BIT-equal to JAX's,
   and the host quantizer's scales equal the device ones on real content;
@@ -13,7 +13,12 @@ for those modules: the port has no host tier yet):
 - the engine: on the same weights and traffic the port's engine gives
   the JAX engine's greedy streams and its tier counters
   (compressed_total, promoted_total, direct_reads, compress_hit_tokens,
-  compress_spills) exactly, with one step shape throughout.
+  compress_spills) exactly, with one step shape throughout;
+- the fleet directory (test_kvcompress.py:450-531): the engine's
+  `device_int8` rows equal the JAX engine's after the same traffic, the
+  port's router ranks device > device_int8 > host and re-prices a
+  direct_int8-capable replica's int8 rows, and `kv_direct_int8` is
+  advertised as JAX's.
 """
 
 import jax
@@ -28,10 +33,12 @@ from paddle_tpu.kernels import paged_attention as jax_paged
 from paddle_tpu.models.transformer import CausalLM as JaxCausalLM
 from paddle_tpu.obs.metrics import MetricsRegistry as JaxRegistry
 from paddle_tpu.quant import int8_compute as jax_quant
-from paddle_tpu_torch.engine import PagedKVCache, ServeEngine
+from paddle_tpu_torch.engine import PagedKVCache, ServeEngine, prefix_digest
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
+from paddle_tpu_torch.serve import router as router_mod
+from paddle_tpu_torch.serve.router import Router
 from paddle_tpu_torch.quant.int8_compute import (QMAX, RQMAX,
                                                  dequantize_block,
                                                  quantize_block,
@@ -488,3 +495,87 @@ def test_effective_pool_bytes_count_int8_only_content(models):
         ref.cache.effective_pool_bytes()
     assert port.obs.get("ptpu_kv_pool_effective_bytes").value == \
         port.cache.effective_pool_bytes()
+
+
+# -- fleet directory: the device_int8 rung (test_kvcompress.py:450-531) ----
+
+def test_engine_advertises_device_int8_rows(models):
+    """The same traffic on both packages' engines: the port advertises
+    the compressed prefix as a device_int8 row, and its directory rows
+    equal the JAX engine's."""
+    prompt = [7, 3, 7, 3, 11, 2, 5, 9]
+    rows = []
+    for eng in _engines(models, kv_compress_blocks=24):
+        eng.generate([prompt], max_new_tokens=4)
+        eng.generate([[50] * 8], max_new_tokens=8)
+        for i in range(3):
+            eng.generate([[30 + i] * 16], max_new_tokens=12)
+        rows.append(eng.kv_prefix_directory())
+    port_rows, jax_rows = rows
+    int8_rows = [r for r in port_rows if r["tier"] == "device_int8"]
+    assert any(r["digest"] == prefix_digest(tuple(prompt[:4]))
+               for r in int8_rows)
+    assert all(set(r) == {"len", "digest", "tier"} for r in port_rows)
+    assert port_rows == jax_rows
+
+
+def test_router_ranks_device_over_int8_over_host():
+    """Equal advertised lengths split on tier heat: a device fp prefix
+    beats a device int8 one which beats a host one; the longest match
+    still beats a hotter shorter one."""
+    assert router_mod._TIER_RANK == {"device": 2, "device_int8": 1,
+                                     "host": 0}
+    urls = [f"http://127.0.0.1:{9100 + i}" for i in range(3)]
+    router = Router(urls, enable_directory=True)
+    a, b, c = router.replicas
+    for r in router.replicas:
+        r.ready = True
+    prompt = list(range(12))
+    d8 = prefix_digest(prompt[:8])
+    a.prefixes = {(8, d8): "host"}
+    b.prefixes = {(8, d8): "device_int8"}
+    c.prefixes = {(8, d8): "device"}
+    assert router.plan_route(prompt)[0] is c
+    c.prefixes = {}
+    assert router.plan_route(prompt)[0] is b
+    a.prefixes = {(12, prefix_digest(prompt)): "host"}
+    assert router.plan_route(prompt)[0] is a
+
+
+def test_router_reprices_int8_for_direct_capable_replica():
+    """A replica advertising direct_int8 has its device_int8 rows priced
+    AT the device rung: they beat a non-capable replica's int8 rows and
+    tie device-fp rows (ties keep the earlier replica)."""
+    urls = [f"http://127.0.0.1:{9200 + i}" for i in range(3)]
+    router = Router(urls, enable_directory=True)
+    a, b, c = router.replicas
+    for r in router.replicas:
+        r.ready = True
+    prompt = list(range(12))
+    d8 = prefix_digest(prompt[:8])
+    row = {(8, d8): "device_int8"}
+    a.prefixes, b.prefixes = dict(row), dict(row)
+    b.direct_int8 = True
+    assert router.plan_route(prompt)[0] is b
+    a.direct_int8, b.direct_int8 = True, False
+    assert router.plan_route(prompt)[0] is a
+    a.direct_int8 = False
+    a.prefixes = {(8, d8): "device"}
+    b.prefixes, c.prefixes = {}, dict(row)
+    c.direct_int8 = True
+    assert router.plan_route(prompt)[0] is a
+    a.prefixes = {(8, d8): "host"}
+    assert router.plan_route(prompt)[0] is c
+
+
+@pytest.mark.parametrize("kw, want", [
+    (dict(kv_compress_blocks=24), True),
+    (dict(kv_compress_blocks=24, kv_promote_hits=2), True),
+    (dict(kv_compress_blocks=24, kv_promote_hits=1), False),
+    (dict(), False)])
+def test_engine_advertises_direct_capability(models, kw, want):
+    """kv_direct_int8 (the /kvprefixes capability field) as JAX's: True
+    whenever the mixed step serves compressed hits in place."""
+    port, ref = _engines(models, **kw)
+    assert port.kv_direct_int8 is want
+    assert ref.kv_direct_int8 is want

@@ -1,8 +1,8 @@
 """The port's host KV tier (engine/kvtier.py and its rungs in the cache,
 scheduler and engine) against the JAX package's.
 
-Mirrors tests/test_kvtier.py (its router test waits for the port's serve
-layer), the host-tier case of tests/test_prefix_cache.py and those of
+Mirrors tests/test_kvtier.py (its router test runs against the port's
+router), the host-tier case of tests/test_prefix_cache.py and those of
 tests/test_kvcompress.py (the device-int8 fast path, the host-load dst
 the cold sweep skips, the compressed pool spilling to the host):
 
@@ -39,6 +39,8 @@ from paddle_tpu_torch.engine.kvtier import to_host, to_torch
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.quant.int8_compute import QMAX, quantize_host_int8
+from paddle_tpu_torch.serve import router as router_mod
+from paddle_tpu_torch.serve.router import Router
 
 VOCAB = 61
 TAILS = [[21, 22, 23, 24], [31, 32, 33, 34], [41, 42, 43, 44]]
@@ -643,3 +645,44 @@ def test_reset_stats_republishes_boot_state(models, tmp_path):
     assert loaded.value == n
     assert eng.obs.get("ptpu_kv_tier_entries").value == len(eng.host_tier)
     assert eng.steps == 0
+
+
+# -- fleet prefix directory (test_kvtier.py:230-270) ----------------------
+
+def test_prefix_digest_matches_router_side():
+    """The replica advertises kvtier.prefix_digest; the router looks up
+    router.prefix_digest: the same function in the port, and JAX's."""
+    rng = np.random.default_rng(5)
+    for _ in range(5):
+        toks = rng.integers(0, 2 ** 31, rng.integers(1, 40)).tolist()
+        assert prefix_digest(toks) == router_mod.prefix_digest(toks) \
+            == jax_prefix_digest(toks)
+    assert prefix_digest([]) == "00000000"   # crc32(b"") pin
+
+
+def test_router_prefers_longest_then_hottest():
+    urls = [f"http://127.0.0.1:{9000 + i}" for i in range(3)]
+    router = Router(urls, enable_directory=True)
+    a, b, _ = router.replicas
+    for r in router.replicas:
+        r.ready = True
+    prompt = list(range(12))
+    primary = router.replicas[router_mod.prefix_shard(prompt, 3)]
+    d4 = prefix_digest(prompt[:4])
+    d8 = prefix_digest(prompt[:8])
+    # longest match wins regardless of tier ...
+    a.prefixes = {(4, d4): "device"}
+    b.prefixes = {(8, d8): "host"}
+    assert router.plan_route(prompt)[0] is b
+    # ... and equal lengths split on tier heat (device beats host)
+    a.prefixes = {(8, d8): "device"}
+    assert router.plan_route(prompt)[0] is a
+    # a prefix LONGER than the prompt never matches; with no match the
+    # sticky hash primary leads
+    a.prefixes = {(16, prefix_digest(list(range(16)))): "device"}
+    b.prefixes = {}
+    assert router.plan_route(prompt)[0] is primary
+    # directory disabled ignores a perfect advertisement
+    router.enable_directory = False
+    b.prefixes = {(8, d8): "device"}
+    assert router.plan_route(prompt)[0] is primary

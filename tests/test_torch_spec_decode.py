@@ -1,6 +1,6 @@
 """The port's speculative decoding and parallel sampling against the JAX
-package's (mirrors tests/test_spec_decode.py; its front-end class waits
-for the port's serve layer).
+package's (mirrors tests/test_spec_decode.py, its front-end class over
+the port's ServeFrontend included).
 
 - the drafter: the same proposals on adversarial histories, and on
   seeded random ones the port's `NgramDrafter` proposes what JAX's does;
@@ -15,8 +15,14 @@ for the port's serve layer).
   / rejected counts and step count; the staged operands of a
   speculating step equal JAX's `_step_fn` operands (last_idx [B, 5]);
   n-best candidates equal solo runs under seed + i and JAX's
-  candidates; a cancelled group leaves the pool quiesced.
+  candidates; a cancelled group leaves the pool quiesced;
+- over HTTP (test_spec_decode.py:385-452): `n` streams frames tagged
+  with their candidate index and in-candidate pos, `best_of` candidates
+  decode silently, bad `n` is a 400, and a disconnect cancels every
+  fork.
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +40,8 @@ from paddle_tpu_torch.engine import (CacheExhausted, NgramDrafter,
 from paddle_tpu_torch.engine.step_graph import OPERANDS
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
+from paddle_tpu_torch.serve.frontend import ServeFrontend
+from paddle_tpu_torch.serve.sse import collect_stream, stream_completion
 
 VOCAB = 61
 SPEC_COUNTERS = ("ptpu_spec_drafted_tokens_total",
@@ -567,3 +575,80 @@ def test_speculative_stream_is_the_dense_greedy_stream(models):
     with torch.inference_mode():
         dense = models[2](toks)[0, len(r.prompt) - 1:-1]
     assert dense.argmax(-1).tolist() == r.generated
+
+
+# -- HTTP front-end: n / best_of (test_spec_decode.py:385-452) -------------
+
+class TestFrontendNBest:
+    @pytest.fixture()
+    def fe(self, models):
+        front = ServeFrontend(_engine(models),
+                              drain_deadline_s=10.0).start()
+        yield front
+        front.stop()
+
+    def test_n_streams_tagged_candidates(self, fe):
+        out = collect_stream(fe.url, {
+            "prompt": [4, 5, 6, 7], "max_new_tokens": 6,
+            "temperature": 0.6, "seed": 9, "n": 2})
+        assert out["status"] == 200 and out["done"]
+        final = out["final"]
+        assert {c["index"] for c in final["candidates"]} == {0, 1}
+        for c in final["candidates"]:
+            assert len(c["tokens"]) == 6 and c["reason"] == "length"
+        assert final["tokens"] == \
+            final["candidates"][final["best_index"]]["tokens"]
+
+    def test_frames_carry_candidate_index_and_pos(self, fe):
+        s = stream_completion(fe.url, {
+            "prompt": [2, 3, 4, 5], "max_new_tokens": 5,
+            "temperature": 0.5, "seed": 3, "n": 2})
+        per_cand = {}
+        for ev in s.events():
+            if "token" in ev:
+                assert ev["pos"] == per_cand.get(ev["index"], 0)
+                per_cand[ev["index"]] = ev["pos"] + 1
+        assert s.done and per_cand == {0: 5, 1: 5}
+
+    def test_best_of_decodes_silently(self, fe):
+        """best_of > n: extra candidates rank but never hit the wire."""
+        out = collect_stream(fe.url, {
+            "prompt": [8, 7, 6, 5], "max_new_tokens": 4,
+            "temperature": 0.7, "seed": 1, "n": 1, "best_of": 3})
+        assert out["status"] == 200 and out["done"]
+        final = out["final"]
+        assert [c["index"] for c in final["candidates"]] == [0]
+        assert len(out["tokens"]) == 4              # only candidate 0's
+        assert fe.engine.cache.occupancy() == 0.0
+
+    def test_bad_n_rejected(self, fe):
+        assert collect_stream(fe.url, {"prompt": [1], "n": 0})[
+            "status"] == 400
+        assert collect_stream(fe.url, {
+            "prompt": [1], "n": 3, "best_of": 2})["status"] == 400
+
+    def test_disconnect_cancels_all_forks(self, fe):
+        """Mid-stream disconnect with n=3: every candidate cancels, all
+        refcounts (shared prompt blocks included) return to baseline."""
+        eng = fe.engine
+        baseline = eng.cache.occupancy()
+        s = stream_completion(fe.url, {
+            "prompt": [7, 7, 7, 7, 1, 2, 3, 4], "max_new_tokens": 40,
+            "temperature": 0.5, "seed": 4, "n": 3})
+        it = s.events()
+        next(it)                                    # first token arrived:
+        s.close()                                   # forks exist; hang up
+        reqs = eng.obs.get("ptpu_serve_requests_total")
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            if reqs.labels(reason="cancelled").value == 3.0:
+                break
+            time.sleep(0.02)
+        assert reqs.labels(reason="cancelled").value == 3.0
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            if eng.cache.occupancy() == baseline:
+                break
+            time.sleep(0.02)
+        assert eng.cache.occupancy() == baseline
+        eng.cache.assert_quiesced()

@@ -178,6 +178,33 @@ def test_captured_launches_restore_and_replay():
         ("paged_attention", "launches")}
 
 
+def test_captured_launches_count_every_replay_across_threads():
+    """Replicas of one process replay their engines' graphs on their own
+    engine threads: every replay's rise must land, however the threads
+    interleave (a replay is a read and a write of the counters)."""
+    import sys
+    import threading
+
+    class Counter:
+        n = 0
+
+    accts = [paged.CapturedLaunches(((Counter, "n"),)) for _ in range(4)]
+    for acct in accts:
+        acct.per_replay = (6,)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)     # switch threads as often as it can
+    try:
+        threads = [threading.Thread(target=lambda a=a: [
+            a.replay() for _ in range(5000)]) for a in accts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(switch)
+    assert Counter.n == 4 * 5000 * 6
+
+
 @pytest.mark.parametrize("which", ["pools", "qpools", "qscales"])
 def test_rebound_pool_raises(models, which):
     """A pool the program was built over, rebound to a new tensor,
