@@ -37,6 +37,13 @@ user calls:
   KV tier behind it (fp, int8, and behind the in-device int8 tier), so
   preempted and recycled blocks demote and revive — held against a
   roomy engine's streams, with a spill / load_spill round trip;
+- `engine_tp` (f32): `ServeEngine.from_saved_model(..., tp_size=2)` —
+  rank 0 in this process, rank 1 a worker process; on one card both
+  ranks share it over gloo, on two cards each has its own over NCCL —
+  serving the `engine` phase's traffic in `fp` and `int8` allreduce
+  mode beside a tp=1 engine, then `engine_int8`'s traffic with the
+  in-device int8 tier: kernels 1 and 2 on every rank, at each rank's 4
+  query heads over 4 kv heads;
 - `split_path`: `CausalLM.prefill_chunk_paged` then
   `decode_step_paged` — the paged-decode kernel (the ragged kernels'
   split and combine kernels over one decode tile a sequence).
@@ -85,6 +92,7 @@ from paddle_tpu_torch import optim
 from paddle_tpu_torch.core import Trainer
 from paddle_tpu_torch.engine import HostKVTier, ServeEngine
 from paddle_tpu_torch.engine import engine as engine_mod
+from paddle_tpu_torch.engine.tp_worker import param_bytes
 from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
@@ -1535,6 +1543,275 @@ def phase_engine_tier(cfg: dict, tree: dict, device: torch.device,
     del model, roomy
     gc.collect()
     return out
+
+
+# -- tensor-parallel serving -------------------------------------------------
+
+_RANK_COUNTERS = {"ragged_paged_attention.launches": "ragged_paged_attention",
+                  "ragged_paged_attention.mixed_launches":
+                      "ragged_paged_attention_mixed",
+                  "paged_attention.launches": "paged_attention"}
+
+
+@contextlib.contextmanager
+def allreduce_mode(mode: str):
+    """PTPU_SERVE_ALLREDUCE while open (an engine reads it when built)."""
+    prev = os.environ.get("PTPU_SERVE_ALLREDUCE")
+    os.environ["PTPU_SERVE_ALLREDUCE"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PTPU_SERVE_ALLREDUCE", None)
+        else:
+            os.environ["PTPU_SERVE_ALLREDUCE"] = prev
+
+
+def _tp_ranks(cuda: bool, tp: int):
+    """(device argument, data-plane backend, why) of the tp engines."""
+    if not cuda:
+        return "cpu", "gloo", "CPU rehearsal: every rank on the CPU"
+    n = torch.cuda.device_count()
+    if n >= tp:
+        return None, "nccl", f"{n} cards: each rank on its own card"
+    return (["cuda:0"] * tp, "gloo",
+            f"{n} card: the {tp} ranks share cuda:0, where NCCL refuses "
+            "two ranks on one device, so the data plane is gloo through "
+            "host memory; the NCCL path stays unrun on this machine")
+
+
+def _rank_launches(eng, kernel: str, layers: int, cuda: bool) -> list:
+    """Every rank's kernel launches (the leader's and the workers'
+    counters) must be `kernel` once a layer a step, and nothing else."""
+    per = []
+    for st in eng.rank_state():
+        got = {_RANK_COUNTERS[k]: v for k, v in st["launches"].items()}
+        want = dict.fromkeys(got, 0)
+        if cuda:
+            want[kernel] = eng.steps * layers
+        check(got == want, f"rank {st['rank']}: launches {got} != {want} "
+                           f"({eng.steps} steps x {layers} layers)")
+        per.append(got)
+    return per
+
+
+def _close_tp(eng) -> List[int]:
+    eng.close()
+    codes = eng.worker_exit_codes
+    check(codes and all(c == 0 for c in codes),
+          f"tp workers exited {codes}")
+    return codes
+
+
+def phase_engine_tp(cfg: dict, tree: dict, device: torch.device,
+                    card: dict) -> dict:
+    """Tensor-parallel serving at full width, f32 from the v2 export:
+    `ServeEngine.from_saved_model(..., tp_size=2)` serves the `engine`
+    phase's traffic (two waves on a shared prefix) in `fp` and then
+    `int8` allreduce mode, beside a tp=1 engine on the same weights and
+    traffic; then `engine_int8`'s traffic with the in-device int8 tier,
+    direct reads against promotions. Checks: fp streams equal tp=1's up
+    to the first near tie (top-2 logits within 1e-4 on either engine;
+    splits counted); int8 completes every request; kernel 1 (kernel 2
+    with the tier) launches once a layer a step on EACH rank and nothing
+    else launches; a rank holds half of tp=1's pool bytes and a weight
+    shard smaller than the model (the same on each rank); the int8
+    scales are equal on both ranks; direct-read streams equal the
+    promote path's; one program (`ptpu_engine_compiles` 1) on every
+    rank; the workers exit 0. Times are the host clock around the
+    synchronised drains; the allreduce probe is the engine's own."""
+    cuda = device.type == "cuda"
+    tp = cfg["tp"]["size"]
+    devs, backend, why = _tp_ranks(cuda, tp)
+    layers = cfg["lm"]["num_layers"]
+    if not (EXPORT_DIR / "signature.json").exists():
+        write_export(cfg, tree)
+    kw = dict(block_size=cfg["block_size"], num_blocks=cfg["num_blocks"],
+              max_batch_size=cfg["max_batch"],
+              max_prefill_tokens=cfg["max_prefill"], tile_q=cfg["tile_q"])
+    rng = np.random.default_rng(SEED + 3)          # the engine phase's
+    vocab, n_new = cfg["vocab"], cfg["max_new"]
+    prefix = rng.integers(0, vocab, cfg["prefix"]).tolist()
+    lens1 = [cfg["long_prompt"] - cfg["prefix"]] + [
+        16 + 9 * i for i in range(cfg["max_batch"] - 1)]
+    wave1 = [prefix + rng.integers(0, vocab, n).tolist() for n in lens1]
+    wave2 = [prefix + rng.integers(0, vocab, 5 + 7 * i).tolist()
+             for i in range(cfg["max_batch"])]
+
+    def serve(eng):
+        gaps: Dict[Tuple[int, int], float] = {}
+        with recorded_engine_gaps(gaps):
+            t0 = time.perf_counter()
+            reqs = [eng.add_request(p, max_new_tokens=n_new) for p in wave1]
+            eng.run()
+            reqs += [eng.add_request(p, max_new_tokens=n_new) for p in wave2]
+            eng.run()
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        toks = [r.generated for r in reqs]
+        rgaps = [[gaps[(r.req_id, len(r.prompt) + i)] for i in range(n_new)]
+                 for r in reqs]
+        ttft = sorted((r.first_token_time - r.enqueue_time) * 1e3
+                      for r in reqs)
+        for r in reqs:
+            check(r.finish_reason == "length" and len(r.generated) == n_new,
+                  f"request {r.req_id} ended {r.finish_reason!r} after "
+                  f"{len(r.generated)} tokens")
+        return toks, rgaps, {
+            "steps": eng.steps, "wall_s": wall,
+            "step_ms": wall * 1e3 / eng.steps,
+            "tokens_per_s": n_new * len(reqs) / wall,
+            "ttft_p50_ms": float(np.median(ttft))}
+
+    ref = ServeEngine.from_saved_model(str(EXPORT_DIR), device=device,
+                                       registry=MetricsRegistry(), **kw)
+    ref.generate([[1, 2, 3]], max_new_tokens=2)     # warm-up
+    ref.reset_stats()
+    want, want_gaps, ref_out = serve(ref)
+    ref_bytes = ref.cache.per_chip_pool_bytes()
+    ref_params = param_bytes(ref.model)
+    out = {"tp": tp, "backend": backend, "why": why,
+           "ranks": ([str(d) for d in devs] if isinstance(devs, list)
+                     else [f"cuda:{i}" for i in range(tp)] if devs is None
+                     else [devs] * tp),
+           "tp1": ref_out, "tp1_pool_bytes": ref_bytes,
+           "tp1_param_bytes": ref_params}
+    del ref
+    gc.collect()
+
+    for mode in ("fp", "int8"):
+        with allreduce_mode(mode):
+            t0 = time.perf_counter()
+            eng = ServeEngine.from_saved_model(
+                str(EXPORT_DIR), device=devs, tp_size=tp,
+                registry=MetricsRegistry(), **kw)
+            build_s = time.perf_counter() - t0
+        try:
+            check(eng.tp_backend == backend, f"backend {eng.tp_backend} "
+                                             f"!= {backend}")
+            eng.generate([[1, 2, 3]], max_new_tokens=2)   # warm-up
+            eng.reset_stats()
+            _reset_launches()                       # the path's counts
+            eng.rank_state(reset_launches=True)     # ... on every rank
+            got, got_gaps, res = serve(eng)
+            res["rank_launches"] = _rank_launches(
+                eng, "ragged_paged_attention", layers, cuda)
+            _expect_launches("ragged_paged_attention", eng.steps, layers,
+                             cuda)
+            states = eng.rank_state()
+            res["rank_pool_bytes"] = [s["pool_bytes"] for s in states]
+            check(all(2 * b == ref_bytes for b in res["rank_pool_bytes"]),
+                  f"rank pool bytes {res['rank_pool_bytes']} != half of "
+                  f"tp=1's {ref_bytes}")
+            # a rank holds its weight shard (the replicated embedding,
+            # LayerNorms and fc2 / out_proj biases whole), never the model
+            res["rank_param_bytes"] = [s["param_bytes"] for s in states]
+            check(len(set(res["rank_param_bytes"])) == 1
+                  and res["rank_param_bytes"][0] < ref_params
+                  and param_bytes(eng.model) == res["rank_param_bytes"][0],
+                  f"rank param bytes {res['rank_param_bytes']}, tp=1's "
+                  f"{ref_params}")
+            compiles = eng.obs.get("ptpu_engine_compiles").value
+            check([s["compiles"] for s in states] == [1] * tp
+                  and compiles == 1 and len(eng.step_shapes) == 1,
+                  f"programs {[s['compiles'] for s in states]}, gauge "
+                  f"{compiles}, {len(eng.step_shapes)} step shapes")
+            rows = [_stream_split(w, g, wg, gg, 1e-4) for w, g, wg, gg
+                    in zip(want, got, want_gaps, got_gaps)]
+            res["streams_equal_tp1"] = sum(w == g for w, g in zip(want, got))
+            res["splits"] = [r for r in rows if r["agreed"] < n_new]
+            if mode == "fp":
+                check(all(r["ok"] for r in rows),
+                      f"fp tp streams split from tp=1 before a near tie: "
+                      f"{res['splits']}")
+            res.update(build_s=build_s, probe_ms=eng._allreduce_probe_ms,
+                       requests=len(want), generated_tokens=n_new * len(want))
+            eng.cache.assert_quiesced()
+        finally:
+            codes = _close_tp(eng)
+        out[mode] = dict(res, worker_exit_codes=codes)
+        del eng
+        gc.collect()
+    out["int8_tier"] = _engine_tp_tier(cfg, devs, tp, layers, cuda)
+    emit({"phase": "engine_tp", **out, "dtype": "float32",
+          "device": card["kind"], "nvidia_smi": card["smi"]})
+    return out
+
+
+def _engine_tp_tier(cfg: dict, devs, tp: int, layers: int,
+                    cuda: bool) -> dict:
+    """engine_int8's traffic on tp=2 engines with the in-device int8
+    tier (fp allreduce): wave 1, fillers until the prefix is int8-only,
+    wave 2 reading it in place; then the same with kv_promote_hits=1."""
+    c = cfg["int8"]
+    bs, vocab, n_new = cfg["block_size"], cfg["vocab"], c["max_new"]
+    rng = np.random.default_rng(SEED + 7)          # engine_int8's
+    prefix = rng.integers(0, vocab, cfg["prefix"]).tolist()
+    wave1 = [prefix + rng.integers(0, vocab, 16 + 9 * i).tolist()
+             for i in range(cfg["max_batch"])]
+    wave2 = [prefix + rng.integers(0, vocab, 5 + 7 * i).tolist()
+             for i in range(cfg["max_batch"])]
+    fillers = [[rng.integers(0, vocab, c["filler_len"]).tolist()
+                for _ in range(cfg["max_batch"])]
+               for _ in range(c["max_filler_waves"])]
+    head = tuple(prefix[:bs])
+    runs = {}
+    for name, hits in (("direct", 0), ("promote", 1)):
+        _reset_launches()                           # the path's counts
+        with allreduce_mode("fp"):
+            eng = ServeEngine.from_saved_model(
+                str(EXPORT_DIR), device=devs, tp_size=tp,
+                registry=MetricsRegistry(), block_size=bs,
+                num_blocks=c["num_blocks"], max_batch_size=cfg["max_batch"],
+                max_prefill_tokens=cfg["max_prefill"], tile_q=cfg["tile_q"],
+                kv_compress_blocks=c["compress_blocks"],
+                kv_promote_hits=hits)
+        try:
+            t0 = time.perf_counter()
+            eng.generate(wave1, max_new_tokens=n_new)
+            waves = 0
+            while head in eng.cache._index:
+                check(waves < len(fillers), "fillers never recycled the "
+                                            "prefix's fp blocks")
+                eng.generate(fillers[waves], max_new_tokens=4)
+                waves += 1
+            streams = eng.generate(wave2, max_new_tokens=n_new)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            check(all(len(x) == n_new for x in streams),
+                  f"{name}: a request did not complete")
+            check((st["direct_int8_reads"] > 0) == (hits == 0)
+                  and (st["promote_total"] > 0) == (hits == 1),
+                  f"{name}: direct reads {st['direct_int8_reads']}, "
+                  f"promotions {st['promote_total']}")
+            launches = _rank_launches(eng, "ragged_paged_attention_mixed",
+                                      layers, cuda)
+            scales = [s["qscales"] for s in eng.rank_state()]
+            same = all(np.array_equal(a, b) for r in scales[1:]
+                       for pa, pb in zip(scales[0], r)
+                       for a, b in zip(pa, pb))
+            check(same, f"{name}: int8 scales differ between the ranks")
+            check(eng.step_graph.compiles == 1, "more than one program")
+            eng.cache.assert_quiesced()
+            runs[name] = {"steps": eng.steps, "wall_s": wall,
+                          "filler_waves": waves, "streams": streams,
+                          "rank_launches": launches,
+                          "direct_int8_reads": st["direct_int8_reads"],
+                          "promote_total": st["promote_total"],
+                          "compress_total": st["compress_total"],
+                          "scales_equal_across_ranks": same}
+        finally:
+            codes = _close_tp(eng)
+        runs[name]["worker_exit_codes"] = codes
+        del eng
+        gc.collect()
+    same = runs["direct"].pop("streams") == runs["promote"].pop("streams")
+    check(same, "tp direct-read streams != promote streams")
+    return {**runs["direct"], "promote_run": runs["promote"],
+            "streams_equal_promote": same}
 
 
 # -- serving over HTTP: replicas, the router, KV transfer ------------------
@@ -3198,6 +3475,8 @@ def full_config() -> dict:
         # 256 MB host tier holds them all
         tier=dict(prompt=200, new=32, num_blocks=110, roomy_blocks=1024,
                   bytes=256 << 20, compress_blocks=32, filler_waves=2),
+        # engine_tp: tp=2 over the engine phase's traffic and engine_int8's
+        tp=dict(size=2),
         # serve_http: 16 greedy completions of 32 tokens through the
         # router, 8 on a 256-token prefix with suffixes of 16-1200 (to the
         # prefill replica) and 8 of 20-60 tokens (to the decode replica);
@@ -3237,6 +3516,7 @@ def tiny_config() -> dict:
                   eager_new=4),
         tier=dict(prompt=40, new=20, num_blocks=14, roomy_blocks=64,
                   bytes=16 << 20, compress_blocks=4, filler_waves=2),
+        tp=dict(size=2),
         serve_http=dict(prefix=32, suffix=(4, 60), short=(5, 10),
                         requests=8, new=6, gone_new=40, xfer_new=30,
                         tier_bytes=16 << 20, latency_pairs=2))
@@ -3295,6 +3575,7 @@ def main(argv=None) -> int:
         spec = phase_engine_spec(cfg, tree, device, card)
         phase_engine_tier(cfg, tree, device, card)
         serve_http = phase_serve_http(cfg, tree, device, card)
+        tp = phase_engine_tp(cfg, tree, device, card)
         paths["paged_attention"] = phase_split_path(cfg, tree, device, card)
         train = phase_train(cfg, tree, device, card)
         paths.update(dict.fromkeys(FLASH_KERNELS, train))
@@ -3321,6 +3602,12 @@ def main(argv=None) -> int:
                     spec["float32"]["kernel_launches"][name]
                 rows[-1]["launches_serve_http"] = \
                     serve_http["kernel_launches"][name]
+                rows[-1]["launches_tp_per_rank"] = {
+                    mode: [r[name] for r in tp[mode]["rank_launches"]]
+                    for mode in ("fp", "int8")}
+            if name == "ragged_paged_attention_mixed":
+                rows[-1]["launches_tp_per_rank"] = [
+                    r[name] for r in tp["int8_tier"]["rank_launches"]]
             if name == "flash_fwd":
                 rows[-1]["launches_generate"] = {
                     dt: r["kernel_launches"][name]

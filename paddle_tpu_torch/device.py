@@ -26,3 +26,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device=\"cpu\" to run on "
             "the CPU")
     return dev
+
+
+def indexed(dev: torch.device) -> torch.device:
+    """`cuda` -> `cuda:<current>`, the form a tensor's .device takes."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -74,7 +74,20 @@ The serve layer (paddle_tpu_torch/serve/) reads the engine through
 `kv_prefix_directory` (the /kvprefixes advertisement) and `debug_state`
 (/debug and the flight recorder), between steps on its engine thread.
 
-Not ported yet (ROADMAP.md): tensor-parallel serving (`tp_size`).
+TENSOR-PARALLEL SERVING (tp_size > 1): the engine is rank 0 of tp_size
+ranks and starts the others as worker processes (engine/tp_worker.py).
+Rank r runs on device[r] (by default cuda:r; "cpu" puts every rank on
+the CPU) with its shard of the weights (parallel/sharding.
+serve_tp_rules; each shard is cut on the host and only then moved to its
+device, and `engine.model` is rank 0's shard) and its head slices of
+the KV pools; the engine keeps
+the scheduler, the cache's bookkeeping, sampling and the host tier, and
+sends the workers each step's operands and each flush's lanes. The
+row-parallel fc2 reduce takes PTPU_SERVE_ALLREDUCE's mode, read once
+here ("int8" quantized by default, "fp" the exact sum). Every rank runs
+the step eagerly (one program: `ptpu_engine_compiles` reads 1). tp_size
+1 is the engine above, with no process group and no worker. `close()`
+stops the workers; a finalizer does when the engine is collected.
 """
 
 from __future__ import annotations
@@ -82,12 +95,12 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.device import DeviceLike, resolve_device
+from paddle_tpu_torch.device import DeviceLike, indexed, resolve_device
 from paddle_tpu_torch.engine.draft import NgramDrafter
 from paddle_tpu_torch.engine.kvtier import (HostKVTier, prefix_digest,
                                            to_torch)
@@ -99,12 +112,39 @@ from paddle_tpu_torch.io.checkpoint import load_checkpoint
 from paddle_tpu_torch.models import CausalLM, load_jax_params
 from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
 from paddle_tpu_torch.obs.tracing import RequestTracer
-from paddle_tpu_torch.quant.int8_compute import (dequantize_block,
-                                                 quantize_block)
 from paddle_tpu_torch.utils.log import serve_event
 
 _COPY_LANES = 8     # COW copies flushed through one fixed-shape call
-_TIER_LANES = 8     # tier lanes (compress, promote, host revival) a call
+# tier lanes (compress, promote, host revival) a call: the same width, so
+# a tp worker's one lane buffer takes every flush
+_TIER_LANES = _COPY_LANES
+
+
+def tp_devices(tp_size: int, device=None) -> List[torch.device]:
+    """The device of each rank of a tp engine: `device` a sequence of
+    tp_size devices; "cpu" every rank on the CPU; None (or "cuda")
+    cuda:0 .. cuda:tp_size-1, which needs that many cards."""
+    if device is None or (isinstance(device, (str, torch.device))
+                          and str(device) == "cuda"):
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < tp_size:
+            raise ValueError(
+                f"tp_size={tp_size} needs {tp_size} CUDA devices, have {n}: "
+                f"pass device=['cuda:0'] * {tp_size} to run every rank on "
+                "one card (over gloo), or device='cpu' to run them on the "
+                "CPU")
+        return [torch.device("cuda", i) for i in range(tp_size)]
+    if isinstance(device, (str, torch.device)):
+        dev = resolve_device(device)
+        if dev.type != "cpu":
+            raise ValueError(
+                f"device={device!r} for tp_size={tp_size}: a tp engine takes "
+                "one device a rank, as a sequence, or 'cpu'")
+        return [dev] * tp_size
+    devs = [indexed(resolve_device(d)) for d in device]
+    if len(devs) != tp_size:
+        raise ValueError(f"{len(devs)} devices for tp_size={tp_size}")
+    return devs
 
 
 def serve_metadata(model) -> dict:
@@ -175,7 +215,11 @@ class ServeEngine:
     behind the pool (`kv_tier_int8` quantizes it, `tier_spill_dir`
     warm-starts it from a spill, `demote_finished` demotes finished
     requests into it). `device` defaults to the CUDA card and must be
-    the model's device."""
+    the model's device. `tp_size` > 1 serves over that many ranks
+    (tensor parallelism: `device` is then a sequence of one device a
+    rank, or "cpu"; `model`, on any device, is only read to cut the
+    ranks' shards, and `self.model` is rank 0's); `close()` stops its
+    workers."""
 
     def __init__(self, model, max_batch_size: int = 4,
                  block_size: int = 16, num_blocks: int = 256,
@@ -192,16 +236,36 @@ class ServeEngine:
                  tier_spill_dir: Optional[str] = None,
                  kv_compress_blocks: int = 0,
                  kv_promote_hits: int = 0,
+                 tp_size: int = 1,
                  demote_finished: bool = False,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
-        if self.device != model.device:
-            raise ValueError(f"engine device {self.device} != model device "
-                             f"{model.device}")
-        self.model = model
+                 device: Union[DeviceLike, Sequence[DeviceLike]] = None):
+        attn = model.blocks[0].attn
+        self.tp_size = int(tp_size)
+        self._serve_tp = None
+        self._tp = None               # the workers' command stream
+        self.tp_devices: Optional[List[torch.device]] = None
+        self.tp_backend: Optional[str] = None     # the data plane's
+        if self.tp_size > 1:
+            # every check before any process starts
+            ffn_dim = model.blocks[0].ffn.fc1.out_features
+            for name, n in (("num_heads", attn.num_heads),
+                            ("num_kv_heads", attn.num_kv_heads),
+                            ("ffn_dim", ffn_dim)):
+                if n % self.tp_size:
+                    raise ValueError(
+                        f"{name}={n} not divisible by tp_size="
+                        f"{self.tp_size}: tensor parallelism splits heads "
+                        "(KV pools over kv heads, so GQA groups stay on "
+                        "one rank) and ffn features evenly")
+            self.tp_devices = tp_devices(self.tp_size, device)
+            self.device = self.tp_devices[0]
+        else:
+            self.device = resolve_device(device)
+            if indexed(self.device) != indexed(model.device):
+                raise ValueError(f"engine device {self.device} != model "
+                                 f"device {model.device}")
         self.obs = registry if registry is not None else default_registry()
         self.tracer = tracer if tracer is not None else RequestTracer()
-        attn = model.blocks[0].attn
         self.max_seq_len = min(max_seq_len or model.max_len, model.max_len)
         self.max_batch_size = max_batch_size
         if max_prefill_tokens < 1:
@@ -255,13 +319,21 @@ class ServeEngine:
             if loaded:
                 serve_event("tier_warm_start", dir=tier_spill_dir,
                             blocks=loaded)
-        self.cache = PagedKVCache(
+        cache_kw = dict(
             num_layers=len(model.blocks), num_blocks=num_blocks,
             block_size=block_size, num_kv_heads=attn.num_kv_heads,
-            head_dim=attn.head_dim, dtype=model.dtype, device=self.device,
-            enable_prefix_cache=enable_prefix_cache, registry=self.obs,
-            host_tier=self.host_tier, compress_blocks=kv_compress_blocks,
-            promote_hits=kv_promote_hits)
+            head_dim=attn.head_dim, enable_prefix_cache=enable_prefix_cache,
+            compress_blocks=kv_compress_blocks)
+        # the model the step runs: under tp rank 0's shard, and the
+        # caller's model is only read (to the host) to cut the shards
+        self.model = (self._start_tp(model, cache_kw)
+                      if self.tp_size > 1 else model)
+        self.cache = PagedKVCache(
+            dtype=model.dtype, device=self.device, registry=self.obs,
+            host_tier=self.host_tier, promote_hits=kv_promote_hits,
+            tp_size=self.tp_size, **cache_kw)
+        if self._tp is not None:
+            self.cache.gather_heads = self._tp.gather_heads
         if self.host_tier is not None:
             # prime the tier's eager paths — the demote gather and the
             # revival lane write (pad lanes only: zeros into scratch
@@ -286,21 +358,119 @@ class ServeEngine:
         self.step_shapes: set = set()
         # the step program over fixed operand buffers: on the card a
         # CUDA graph, captured here; every step replays it
-        self.step_graph = StepGraph(model, self.cache, self.flat_tokens,
-                                    tile_q, max_batch_size,
-                                    self.max_blocks_per_seq, self.spec_len)
+        self.step_graph = StepGraph(
+            self.model, self.cache, self.flat_tokens, tile_q,
+            max_batch_size, self.max_blocks_per_seq, self.spec_len,
+            tp=self._serve_tp,
+            before_step=None if self._tp is None else self._tp.step)
         self._register_metrics()
+        self._m_tp_size.set(float(self.tp_size))
+        if self._tp is not None:
+            # a one-shot probe of the serving allreduce, every rank in it,
+            # into ptpu_serve_allreduce_ms{mode} (the step itself is not
+            # timed per collective)
+            from paddle_tpu_torch.parallel.serve_collective import \
+                allreduce_probe_ms
+            shape = (1, model.model_dim)
+            self._tp.probe(shape)
+            self._allreduce_probe_ms = allreduce_probe_ms(
+                self._serve_tp.group, self._serve_tp.mode, shape=shape,
+                chunk=self._serve_tp.chunk, device=self.device)
+            self._m_allreduce.labels(mode=self._serve_tp.mode).observe(
+                self._allreduce_probe_ms)
+
+    def _start_tp(self, model, cache_kw: dict):
+        """Start ranks 1..tp_size-1 and send each its weight shard and
+        the shapes it serves at; returns rank 0's shard of `model`, built
+        as the workers build theirs (the caller's model keeps its
+        weights)."""
+        # imported here: `python -m paddle_tpu_torch.engine.tp_worker`
+        # must find the worker module not yet imported by the package
+        from paddle_tpu_torch.engine.tp_worker import TPLeader, build_shard
+        from paddle_tpu_torch.models.convert import to_jax_params
+        from paddle_tpu_torch.parallel.serve_collective import (
+            DEFAULT_CHUNK, ServeTP, resolve_mode)
+        from paddle_tpu_torch.parallel.sharding import (serve_tp_rules,
+                                                        shard_variables)
+        from paddle_tpu_torch.utils.tree import flatten_with_keys
+
+        tp, devs = self.tp_size, self.tp_devices
+        mode = resolve_mode()
+        # NCCL when every rank has a card of its own; gloo on the CPU or
+        # when ranks share a card (NCCL refuses two ranks on one device)
+        backend = ("nccl" if all(d.type == "cuda" for d in devs)
+                   and len(set(devs)) == tp else "gloo")
+        self.tp_backend = backend
+        if self.device.type == "cuda":
+            from paddle_tpu_torch.kernels import paged_attention as paged
+            paged._library()      # built once, before the workers load it
+        meta = serve_metadata(model)
+        rules = serve_tp_rules()
+        tree = to_jax_params(model)
+        shards = [dict(flatten_with_keys(shard_variables(tree, rules, r, tp)))
+                  for r in range(tp)]
+        spec = {
+            "model": dict({k: meta[k] for k in (
+                "vocab", "model_dim", "num_heads", "num_layers", "ffn_dim",
+                "max_len", "tie_embeddings", "fused_qkv", "num_kv_heads")},
+                dtype=str(model.dtype).split(".")[-1]),
+            "cache": cache_kw,
+            "graph": dict(flat_tokens=self.flat_tokens, tile_q=self.tile_q,
+                          max_batch_size=self.max_batch_size,
+                          max_blocks=-(-self.max_seq_len
+                                       // cache_kw["block_size"]),
+                          spec_len=self.spec_len),
+            "tp": dict(mode=mode, chunk=DEFAULT_CHUNK),
+            "lanes": _TIER_LANES}
+        self._tp = TPLeader(tp, devs, backend, spec, shards)
+        self._serve_tp = ServeTP(self._tp.data, tp, mode=mode,
+                                 chunk=DEFAULT_CHUNK)
+        return build_shard(spec["model"], shards[0], devs[0], 0, tp)
+
+    # -- tensor-parallel ranks ----------------------------------------------
+    def close(self) -> None:
+        """Stop and join a tp engine's workers (a no-op at tp_size 1, and
+        when already closed); `worker_exit_codes` holds their codes."""
+        if self._tp is not None:
+            self._tp.close()
+
+    @property
+    def worker_exit_codes(self) -> List[Optional[int]]:
+        """The workers' exit codes after `close()` (rank order from 1)."""
+        return [] if self._tp is None else list(self._tp.exit_codes)
+
+    def rank_state(self, reset_launches: bool = False) -> List[dict]:
+        """Every rank's {rank, launches, pool_bytes, param_bytes, qscales,
+        compiles}: the leader's own, then the workers' over the command
+        stream (`launches` are the kernel wrappers' counters of that
+        rank's process; `param_bytes` its weight shard's;
+        `reset_launches` zeroes the workers' launches after reading)."""
+        from paddle_tpu_torch.engine.tp_worker import (launch_counts,
+                                                       param_bytes)
+        own = {"rank": 0, "launches": launch_counts(),
+               "pool_bytes": self.cache.per_chip_pool_bytes(),
+               "param_bytes": param_bytes(self.model),
+               "qscales": [(k.cpu().numpy(), v.cpu().numpy())
+                           for k, v in self.cache.qscales],
+               "compiles": self.step_graph.compiles}
+        if self._tp is None:
+            return [own]
+        return [own] + self._tp.state(reset_launches)
 
     # -- construction from an exported artifact ---------------------------
     @classmethod
-    def from_saved_model(cls, model_dir: str, device: DeviceLike = None,
+    def from_saved_model(cls, model_dir: str,
+                         device: Union[DeviceLike,
+                                       Sequence[DeviceLike]] = None,
                          **engine_kwargs) -> "ServeEngine":
         """Build model + engine from a directory the JAX package's
         `save_inference_model` wrote with the manifest's `serve` block
         (`serve_metadata`): the model is rebuilt from `signature.json`
         and its weights read from the `params` checkpoint with numpy.
         `max_seq_len` defaults to the model's max_len. `device`
-        defaults to the CUDA card."""
+        defaults to the CUDA card; with `tp_size` > 1 it is the ranks'
+        devices (`tp_devices`), and the whole model is built on the
+        host, where the ranks' shards are cut from it."""
         with open(os.path.join(model_dir, "signature.json")) as f:
             sig = json.load(f)
         meta = sig.get("serve")
@@ -315,7 +485,8 @@ class ServeEngine:
             ffn_dim=meta["ffn_dim"], dropout=0.0, max_len=meta["max_len"],
             tie_embeddings=meta["tie_embeddings"],
             fused_qkv=meta["fused_qkv"],
-            num_kv_heads=meta["num_kv_heads"], device=device)
+            num_kv_heads=meta["num_kv_heads"],
+            device="cpu" if engine_kwargs.get("tp_size", 1) > 1 else device)
         load_jax_params(model, load_checkpoint(
             os.path.join(model_dir, "params")))
         engine_kwargs.setdefault("max_seq_len", meta["max_len"])
@@ -342,6 +513,14 @@ class ServeEngine:
         self._m_reqs = m.counter(
             "ptpu_serve_requests_total", "Finished requests",
             labelnames=("reason",))      # reason=eos|length|cancelled
+        self._m_tp_size = m.gauge(
+            "ptpu_serve_tp_size",
+            "Tensor-parallel degree of the serving ranks (1 = "
+            "single-device)")
+        self._m_allreduce = m.histogram(
+            "ptpu_serve_allreduce_ms",
+            "Decode-MLP allreduce probe wall time at engine construction "
+            "(ms)", labelnames=("mode",))        # mode=fp|int8
         self._m_tokens = m.counter(
             "ptpu_serve_tokens_total", "Token flow through the engine",
             labelnames=("kind",))        # kind=prefill|cached|generated
@@ -538,62 +717,53 @@ class ServeEngine:
                 for rid, r in self.finished.items()}
 
     # -- internals ---------------------------------------------------------
-    def _copy_blocks(self, src: torch.Tensor, dst: torch.Tensor) -> None:
-        """COW replay: dst blocks take src blocks' contents, every layer,
-        in place (index_select copies the sources out first, so a lane
-        never reads a block another lane of the batch wrote); padding
-        lanes are (0, 0) — scratch onto itself."""
-        with torch.inference_mode():
-            for kp, vp in self.cache.pools:
-                kp.index_copy_(0, dst, kp.index_select(0, src))
-                vp.index_copy_(0, dst, vp.index_select(0, src))
-
     def _flush_cow(self) -> None:
         """Replay queued copy-on-write block copies on the device pools
         BEFORE the step that writes the fresh blocks, in fixed-width
-        _COPY_LANES batches."""
+        _COPY_LANES batches; pad lanes copy scratch block 0 onto
+        itself."""
         copies = self.cache.drain_copies()
         for i in range(0, len(copies), _COPY_LANES):
-            batch = copies[i:i + _COPY_LANES]
-            src = np.zeros((_COPY_LANES,), np.int64)
-            dst = np.zeros((_COPY_LANES,), np.int64)
-            for j, (s, d) in enumerate(batch):
-                src[j], dst[j] = s, d
-            self._copy_blocks(self._to_device(src), self._to_device(dst))
+            self._run_lanes("cow", self.cache.copy_blocks,
+                            *self._lanes(copies, i))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _lanes(self, jobs, i: int) -> "tuple[torch.Tensor, torch.Tensor]":
-        """Fixed-width (_TIER_LANES) (fp block, int8 slot) index tensors
-        of jobs[i:i + _TIER_LANES]; unused lanes pair scratch block 0
-        with scratch slot 0."""
-        blocks = np.zeros((_TIER_LANES,), np.int64)
-        slots = np.zeros((_TIER_LANES,), np.int64)
-        for j, (b, s) in enumerate(jobs[i:i + _TIER_LANES]):
-            blocks[j], slots[j] = b, s
-        return self._to_device(blocks), self._to_device(slots)
+    @staticmethod
+    def _lanes(jobs, i: int) -> "tuple[np.ndarray, np.ndarray]":
+        """Fixed-width (_TIER_LANES) index pairs of jobs[i:i +
+        _TIER_LANES] — (src, dst) copies, (fp block, int8 slot) tier
+        jobs; unused lanes are (0, 0), the scratch block and slot."""
+        a = np.zeros((_TIER_LANES,), np.int64)
+        b = np.zeros((_TIER_LANES,), np.int64)
+        for j, (x, y) in enumerate(jobs[i:i + _TIER_LANES]):
+            a[j], b[j] = x, y
+        return a, b
 
-    def _tier_pools(self):
-        """(fp pool, int8 pool, scales) for every layer's k, then v."""
-        for (kp, vp), (kq, vq), (ks, vs) in zip(
-                self.cache.pools, self.cache.qpools, self.cache.qscales):
-            yield kp, kq, ks
-            yield vp, vq, vs
+    def _run_lanes(self, kind: str, fn, a: np.ndarray, b: np.ndarray,
+                   *extra) -> None:
+        """One flush batch of `kind` ("cow", "compress", "promote"): sent
+        to the workers under tp, then run here on this rank's pools."""
+        if self._tp is not None:
+            self._tp.lanes(kind, a, b)
+        fn(self._to_device(a), self._to_device(b), *extra)
+
+    def _reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        from paddle_tpu_torch.parallel.collective import all_reduce
+        return all_reduce(t, self._serve_tp.group, "max")
 
     def _flush_compress(self) -> None:
         """Quantize staged cold fp blocks into the int8 pools — FIRST
         among the pre-step flushes, so the quantize lanes read every src
         block before a promote or COW copy can overwrite it. Pad lanes
-        quantize fp scratch block 0 into int8 scratch slot 0."""
+        quantize fp scratch block 0 into int8 scratch slot 0. Under tp a
+        block's scale is the MAX over the ranks' head slices."""
         jobs = self.cache.drain_compress()
-        with torch.inference_mode():
-            for i in range(0, len(jobs), _TIER_LANES):
-                src, dst = self._lanes(jobs, i)
-                for pool, qpool, scales in self._tier_pools():
-                    q8, sc = quantize_block(pool.index_select(0, src))
-                    qpool.index_copy_(0, dst, q8)
-                    scales.index_copy_(0, dst, sc)
+        reduce_max = None if self._tp is None else self._reduce_max
+        for i in range(0, len(jobs), _TIER_LANES):
+            self._run_lanes("compress", self.cache.compress_lanes,
+                            *self._lanes(jobs, i), reduce_max)
 
     def _flush_tier_loads(self) -> None:
         """Write staged host-tier revivals into the pools — after
@@ -610,21 +780,21 @@ class ServeEngine:
         then into the pools IN PLACE with index_copy_ (the step's graph
         holds the pools' addresses). Unused lanes write zeros into
         scratch block 0. Payloads in another dtype than the pool's are
-        cast (round to nearest even)."""
+        cast (round to nearest even). The tier holds global blocks; under
+        tp each worker is sent its head slice."""
         kp0 = self.cache.pools[0][0]
         host = torch.zeros((len(self.cache.pools), 2, _TIER_LANES)
-                           + tuple(kp0.shape[1:]), dtype=kp0.dtype)
+                           + self.cache.pool_shape(1)[1:], dtype=kp0.dtype)
         blocks = np.zeros((_TIER_LANES,), np.int64)
         for j, (b, layers) in enumerate(batch):
             blocks[j] = b
             for li, (k, v) in enumerate(layers):
                 host[li, 0, j] = to_torch(k)
                 host[li, 1, j] = to_torch(v)
-        dev, idx = host.to(self.device), self._to_device(blocks)
-        with torch.inference_mode():
-            for li, (kp, vp) in enumerate(self.cache.pools):
-                kp.index_copy_(0, idx, dev[li, 0])
-                vp.index_copy_(0, idx, dev[li, 1])
+        if self._tp is not None:
+            host = self._tp.load(blocks, host)
+        self.cache.write_lanes(self._to_device(blocks),
+                               host.to(self.device))
 
     def _flush_promote(self) -> None:
         """Dequantize staged compressed-tier hits into their claimed fp
@@ -633,13 +803,9 @@ class ServeEngine:
         the step. Pad lanes write int8 scratch slot 0 into fp scratch
         block 0."""
         jobs = self.cache.drain_promotes()
-        with torch.inference_mode():
-            for i in range(0, len(jobs), _TIER_LANES):
-                dst, src = self._lanes(jobs, i)
-                for pool, qpool, scales in self._tier_pools():
-                    pool.index_copy_(0, dst, dequantize_block(
-                        qpool.index_select(0, src),
-                        scales.index_select(0, src), pool.dtype))
+        for i in range(0, len(jobs), _TIER_LANES):
+            self._run_lanes("promote", self.cache.promote_lanes,
+                            *self._lanes(jobs, i))
 
     @property
     def kv_direct_int8(self) -> bool:
@@ -709,6 +875,8 @@ class ServeEngine:
         }
         if self.host_tier is not None:
             out["host_tier"] = self.host_tier.stats()
+        if self._serve_tp is not None:
+            out["tp"] = repr(self._serve_tp)
         return out
 
     def _step_mixed(self, rows: List[StepRow]
@@ -970,10 +1138,15 @@ class ServeEngine:
         self.steps = 0
         self.obs.reset()
         self.tracer.reset()
-        # the tier's boot series survive the zeroing: a warm start
-        # describes this engine, not the traffic the reset baselines
+        # static-config series survive the zeroing: the tp degree, the
+        # construction-time allreduce probe and a tier's warm start
+        # describe this engine, not the traffic the reset baselines
+        self._m_tp_size.set(float(self.tp_size))
         if self.host_tier is not None:
             self.host_tier.republish_boot_state()
+        if self._serve_tp is not None:
+            self._m_allreduce.labels(mode=self._serve_tp.mode).observe(
+                self._allreduce_probe_ms)
 
     # -- convenience --------------------------------------------------------
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,

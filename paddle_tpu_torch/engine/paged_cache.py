@@ -1,6 +1,5 @@
 """PagedKVCache: refcounted block-pool KV storage with prefix sharing
-(port of paddle_tpu/engine/paged_cache.py; the tensor-parallel branch is
-not ported yet).
+(port of paddle_tpu/engine/paged_cache.py).
 
 Instead of one dense [B, Tmax, Hkv, hd] cache per batch slot, KV state
 lives in ONE pool of fixed-size token blocks per layer
@@ -66,18 +65,32 @@ and written IN PLACE by the engine's step and COW copies.
 
 Block 0 is reserved as a scratch block: padded batch rows write their
 garbage k/v there, so a dummy row can never corrupt a live sequence.
+
+Tensor parallelism (`tp_size` > 1): the pools shard over kv heads, so
+each rank's cache holds `pool_shape()` — Hkv/tp heads of every block —
+for the fp and the int8 pools; the per-block int8 scales are whole on
+every rank (the engine reduces a compressed block's scale over the
+ranks with a MAX, so every rank quantizes with the scale of the whole
+block). The bookkeeping runs on rank 0 only. What leaves the device for
+the host tier is the GLOBAL block with every head: `gather_heads`,
+which the tp engine sets, joins the ranks' head slices in head order,
+so host-tier entries, spills and /kvblocks blobs have one layout at
+any tp and in either package.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.engine.kvtier import HostKVTier, to_host
 from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
+from paddle_tpu_torch.quant.int8_compute import (block_scale,
+                                                 dequantize_block,
+                                                 quantize_block)
 
 # a committed block untouched this many steps is cold enough for the
 # proactive quantize sweep (compress_cold)
@@ -103,21 +116,37 @@ class PagedKVCache:
                  enable_prefix_cache: bool = True,
                  registry: Optional[MetricsRegistry] = None,
                  host_tier: Optional[HostKVTier] = None,
-                 compress_blocks: int = 0, promote_hits: int = 0):
+                 compress_blocks: int = 0, promote_hits: int = 0,
+                 tp_size: int = 1):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is scratch)")
         if compress_blocks < 0:
             raise ValueError(f"compress_blocks {compress_blocks} < 0")
         if promote_hits < 0:
             raise ValueError(f"promote_hits {promote_hits} < 0")
+        if tp_size < 1:
+            raise ValueError(f"tp_size {tp_size} < 1")
+        if num_kv_heads % tp_size != 0:
+            # fail at construction, not as a reshape mid-serve: every
+            # rank must own a whole number of kv heads (GQA groups stay
+            # on one rank)
+            raise ValueError(
+                f"num_kv_heads={num_kv_heads} not divisible by "
+                f"tp_size={tp_size}: the KV pool shards over kv-heads "
+                "(pool_shape), so tp must divide them evenly")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.dtype = dtype
+        self.tp_size = tp_size
         self.device = resolve_device(device)
         self.enable_prefix_cache = enable_prefix_cache
-        shape = (num_blocks, block_size, num_kv_heads, head_dim)
+        # (kind "fp"/"int8", block or slot, this rank's stacked host
+        # slices [2L, bs, Hkv/tp, hd]) -> the global [2L, bs, Hkv, hd];
+        # set by the tp engine, None on one rank
+        self.gather_heads: Optional[Callable] = None
+        shape = self.pool_shape()
         self.pools: List[Tuple[torch.Tensor, torch.Tensor]] = [
             (torch.zeros(shape, dtype=dtype, device=self.device),
              torch.zeros(shape, dtype=dtype, device=self.device))
@@ -132,7 +161,7 @@ class PagedKVCache:
         self.qscales: List[Tuple[torch.Tensor, torch.Tensor]] = []
         if self._compress_on:
             nq = self.compress_blocks + 1
-            qshape = (nq, block_size, num_kv_heads, head_dim)
+            qshape = (nq,) + shape[1:]
             self.qpools = [
                 (torch.zeros(qshape, dtype=torch.int8, device=self.device),
                  torch.zeros(qshape, dtype=torch.int8, device=self.device))
@@ -225,6 +254,25 @@ class PagedKVCache:
             "Prompt tokens served by direct int8 reads")
 
     # -- capacity ---------------------------------------------------------
+    def pool_shape(self, tp_size: Optional[int] = None) -> Tuple[int, ...]:
+        """The shape of one rank's k (or v) pool under `tp_size`-way
+        tensor parallelism (default: this cache's own): the kv-head dim
+        divides by tp, the others are whole. tp=1 is the global
+        shape."""
+        tp = self.tp_size if tp_size is None else tp_size
+        if tp < 1 or self.num_kv_heads % tp != 0:
+            raise ValueError(
+                f"num_kv_heads={self.num_kv_heads} not divisible by "
+                f"tp_size={tp}")
+        return (self.num_blocks, self.block_size,
+                self.num_kv_heads // tp, self.head_dim)
+
+    def per_chip_pool_bytes(self) -> int:
+        """Bytes one rank holds across every layer's k and v pool, read
+        off the pool tensors this process allocated."""
+        return sum(t.numel() * t.element_size()
+                   for pair in self.pools for t in pair)
+
     @property
     def free_blocks(self) -> int:
         return len(self._free)
@@ -295,8 +343,64 @@ class PagedKVCache:
         it holds the block's last written content."""
         host = torch.stack([t[block] for pair in self.pools
                             for t in pair]).cpu()
+        if self.gather_heads is not None:
+            host = self.gather_heads("fp", block, host)
         return [(to_host(host[2 * i]), to_host(host[2 * i + 1]))
                 for i in range(len(self.pools))]
+
+    # -- device lane traffic ----------------------------------------------
+    # The engine's pre-step flushes, written in place over fixed-width
+    # lanes of device index tensors. Every rank of a tp engine runs each
+    # one on its own pool slices, in the leader's order.
+    def copy_blocks(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """COW replay: dst blocks take src blocks' contents, every layer
+        (index_select copies the sources out first, so a lane never reads
+        a block another lane wrote); padding lanes are (0, 0)."""
+        with torch.inference_mode():
+            for kp, vp in self.pools:
+                kp.index_copy_(0, dst, kp.index_select(0, src))
+                vp.index_copy_(0, dst, vp.index_select(0, src))
+
+    def _tier_pools(self):
+        """(fp pool, int8 pool, scales) for every layer's k, then v."""
+        for (kp, vp), (kq, vq), (ks, vs) in zip(self.pools, self.qpools,
+                                                self.qscales):
+            yield kp, kq, ks
+            yield vp, vq, vs
+
+    def compress_lanes(self, src: torch.Tensor, dst: torch.Tensor,
+                       reduce_max: Optional[Callable] = None) -> None:
+        """Quantize fp blocks `src` into int8 slots `dst`, every layer's
+        k and v. `reduce_max` (a tp engine's: the MAX over the ranks of
+        a [2L, lanes] tensor) makes each block's scale that of the whole
+        block, so every rank quantizes its heads as one rank would."""
+        with torch.inference_mode():
+            tiers = list(self._tier_pools())
+            blocks = [pool.index_select(0, src) for pool, _, _ in tiers]
+            scales = torch.stack([block_scale(b) for b in blocks])
+            if reduce_max is not None:
+                scales = reduce_max(scales)
+            for (_, qpool, qscales), b, sc in zip(tiers, blocks, scales):
+                q8, sc = quantize_block(b, sc)
+                qpool.index_copy_(0, dst, q8)
+                qscales.index_copy_(0, dst, sc)
+
+    def promote_lanes(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """Dequantize int8 slots `src` into fp blocks `dst`."""
+        with torch.inference_mode():
+            for pool, qpool, qscales in self._tier_pools():
+                pool.index_copy_(0, dst, dequantize_block(
+                    qpool.index_select(0, src),
+                    qscales.index_select(0, src), pool.dtype))
+
+    def write_lanes(self, blocks: torch.Tensor,
+                    payload: torch.Tensor) -> None:
+        """Write `payload` [L, 2, lanes, bs, Hkv/tp, hd] (every layer's k
+        and v, in the pools' dtype) into fp blocks `blocks`."""
+        with torch.inference_mode():
+            for li, (kp, vp) in enumerate(self.pools):
+                kp.index_copy_(0, blocks, payload[li, 0])
+                vp.index_copy_(0, blocks, payload[li, 1])
 
     # -- in-device compressed tier ----------------------------------------
     def _stage_compress(self, block: int, key: tuple, slot: int) -> None:
@@ -350,6 +454,8 @@ class PagedKVCache:
         the ints and the scales."""
         q = torch.stack([t[slot] for pair in self.qpools
                          for t in pair]).cpu()
+        if self.gather_heads is not None:
+            q = self.gather_heads("int8", slot, q)
         s = torch.stack([t[slot] for pair in self.qscales
                          for t in pair]).cpu().tolist()
         return [(q[2 * i].numpy(), s[2 * i], q[2 * i + 1].numpy(),

@@ -31,10 +31,17 @@ On the CPU nothing is captured: the same staging feeds the eager step,
 which is the program cache's one entry, and computes what the engine
 computed before the graph existed (the model widens the int32 ids,
 slots and indices with `.long()`).
+
+A tensor-parallel step (`tp`, a ServeTP) runs eagerly on every rank, on
+the card too: it is the cache's one entry, over this rank's shard of
+the model and its pool slices. `before_step` (the tp leader's) is
+called with the host operand buffer before each step, to send it to the
+other ranks; a worker fills `host_operands` from that broadcast.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, Optional
 
@@ -66,7 +73,8 @@ class StepGraph:
     [max_batch_size, spec_len] otherwise."""
 
     def __init__(self, model, cache, flat_tokens: int, tile_q: int,
-                 max_batch_size: int, max_blocks: int, spec_len: int = 1):
+                 max_batch_size: int, max_blocks: int, spec_len: int = 1,
+                 tp=None, before_step=None):
         if cache.num_blocks * cache.block_size > _INT32_MAX:
             raise ValueError(
                 f"{cache.num_blocks} blocks of {cache.block_size} give slot "
@@ -74,6 +82,8 @@ class StepGraph:
         self.model = model
         self.cache = cache
         self.device = cache.device
+        self.tp = tp
+        self.before_step = before_step
         b = max_batch_size
         shapes = {"tokens": (flat_tokens,), "positions": (flat_tokens,),
                   "block_tables": (b + 1, max_blocks),
@@ -113,7 +123,7 @@ class StepGraph:
         # included), on the card
         self.warmup_ms: Optional[float] = None
         self.capture_ms: Optional[float] = None
-        if cuda:
+        if cuda and tp is None:
             self._capture(shapes["last_idx"] + (model.vocab,))
         else:
             self._programs[self.signature] = None
@@ -127,6 +137,12 @@ class StepGraph:
     def graphs(self) -> list:
         """The captured CUDA graphs (none on the CPU)."""
         return [g for g in self._programs.values() if g is not None]
+
+    @property
+    def host_operands(self) -> torch.Tensor:
+        """The host staging buffer every operand is a view of (int32,
+        one fixed size)."""
+        return self._host
 
     def clear(self) -> None:
         """Reset the host operands to the pad-only step."""
@@ -143,7 +159,7 @@ class StepGraph:
         v = self._views
         return self.model.ragged_step_paged(
             v[0], v[1], self.cache.pools, *v[2:], qpools=self.cache.qpools,
-            qscales=self.cache.qscales)
+            qscales=self.cache.qscales, tp=self.tp)
 
     def _capture(self, logits_shape: tuple) -> None:
         """Warm up on a side stream, capture one step there and rejoin
@@ -166,11 +182,21 @@ class StepGraph:
             self.warmup_ms = (time.perf_counter() - t0) * 1e3
 
         def capture():
-            t0 = time.perf_counter()
-            with torch.inference_mode(), torch.cuda.graph(graph,
-                                                          stream=stream):
-                out = self._step().float()
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
+            # no garbage collection while capturing: collecting an engine
+            # that became garbage would destroy its graph, a CUDA call
+            # that invalidates this capture; collect before instead
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                t0 = time.perf_counter()
+                with torch.inference_mode(), torch.cuda.graph(graph,
+                                                              stream=stream):
+                    out = self._step().float()
+                self.capture_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                if enabled:
+                    gc.enable()
             return out
 
         self._logits = self._launches.capture(capture, warm_up=warm_up)
@@ -186,13 +212,18 @@ class StepGraph:
 
     def run(self) -> np.ndarray:
         """One step over the staged operands: replay the graph on the
-        card, run the eager step on the CPU. Returns the logits."""
+        card, run the eager step on the CPU or under tp. Returns the
+        logits."""
         self._check_addresses()
+        if self.before_step is not None:
+            self.before_step(self._host)
         graph = self._programs[self.signature]
         if graph is None:
+            if self._dev is not self._host:
+                self._dev.copy_(self._host)
             with torch.inference_mode():
                 self._logits = self._step().float()
-            return self._logits.numpy()
+            return self._logits.cpu().numpy()
         self._dev.copy_(self._host, non_blocking=True)
         graph.replay()
         self._launches.replay()

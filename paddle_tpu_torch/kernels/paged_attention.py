@@ -561,6 +561,55 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 # the combine kernel; the plain version on CPU tensors does not count
 paged_attention.launches = 0
 
+# -- tensor-parallel wrappers (the engine's tp_size) ----------------------
+#
+# The kernels take their head counts from their operands, so they run
+# unchanged on a rank's slices: q over the rank's H/tp query heads, the
+# pools over its Hkv/tp kv heads. With H and Hkv both divisible by tp,
+# rank r's query heads [r*H/tp, (r+1)*H/tp) map onto its kv heads
+# exactly (groups = H/Hkv is the same locally), so GQA groups stay on
+# one rank and no collective runs inside attention. The int32 packing
+# and the per-block int8 scales are whole on every rank. JAX wraps each
+# call in a shard_map island over its mesh; a process of the port is
+# already one rank, so these wrappers are the local call, made on
+# contiguous operands. The launch counters count the local call's
+# kernel, once a call, in the rank's own process.
+
+
+def _contiguous(*ts):
+    return tuple(t if t is None else t.contiguous() for t in ts)
+
+
+def ragged_paged_attention_tp(tp, q, k_pool, v_pool, block_tables,
+                              context_lens, q_starts, tile_rows, tile_offs,
+                              scale: Optional[float] = None,
+                              kq_pool=None, vq_pool=None,
+                              k_scales=None, v_scales=None):
+    """`ragged_paged_attention` on rank `tp.rank`'s shard: q [T, H/tp,
+    D], fp pools and int8 pools [NB, BS, Hkv/tp, D]; block tables, the
+    packing and the scales whole. Returns this rank's heads' output
+    [T, H/tp, D] (the downstream out_proj is row-parallel over them).
+    Dispatch by device as every wrapper."""
+    q, k_pool, v_pool, kq_pool, vq_pool = _contiguous(
+        q, k_pool, v_pool, kq_pool, vq_pool)
+    return ragged_paged_attention(q, k_pool, v_pool, block_tables,
+                                  context_lens, q_starts, tile_rows,
+                                  tile_offs, scale=scale, kq_pool=kq_pool,
+                                  vq_pool=vq_pool, k_scales=k_scales,
+                                  v_scales=v_scales)
+
+
+def paged_prefill_attention_tp(tp, q, k_pool, v_pool, block_tables,
+                               context_lens, q_positions,
+                               scale: Optional[float] = None):
+    """`paged_prefill_attention` on rank `tp.rank`'s shard: q [B, C,
+    H/tp, D], pools [NB, BS, Hkv/tp, D], the int32 metadata whole;
+    returns [B, C, H/tp, D]."""
+    q, k_pool, v_pool = _contiguous(q, k_pool, v_pool)
+    return paged_prefill_attention(q, k_pool, v_pool, block_tables,
+                                   context_lens, q_positions, scale=scale)
+
+
 # every counter above, as (wrapper, attribute)
 LAUNCH_COUNTERS = ((ragged_paged_attention, "launches"),
                    (ragged_paged_attention, "mixed_launches"),

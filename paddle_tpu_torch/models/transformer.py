@@ -31,6 +31,17 @@ Every paged path writes the step's k/v into the per-layer block pools
 IN PLACE (JAX returns new pools; an in-place `index_copy_` saves a
 pool-sized copy per layer per step). The projections, the FFN and the
 tied head stay `torch.matmul`, as JAX left them to XLA.
+
+Tensor-parallel serving (`tp=`, a `ServeTP`, on the serve step and the
+split path's chunked prefill): each rank's model holds its shard of the
+weights (parallel/sharding.serve_tp_rules; `shard_module`) and runs at
+local widths — H/tp query heads over Hkv/tp kv heads against its own
+head slice of the pools, the fc1 columns of its ffn/tp features — so no
+collective runs inside attention. out_proj and fc2 are row-parallel:
+each rank's partial product is summed over the ranks (out_proj in fp,
+fc2 by the serving collective's mode), and their biases are added once,
+after the sum. Embeddings, LayerNorms and the head are whole on every
+rank, so every rank's logits are complete.
 """
 
 from __future__ import annotations
@@ -122,17 +133,32 @@ class MultiHeadAttention(nn.Module):
                                device=device)
         self.drop = Dropout(dropout)
 
-    def _project(self, x: torch.Tensor):
-        """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd]."""
+    def _project(self, x: torch.Tensor, tp=None):
+        """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd]; under `tp`
+        this rank's H/tp and Hkv/tp heads (a head-major fused qkv keeps
+        whole heads in each rank's column block)."""
         lead = x.shape[:-1]
+        n = tp.size if tp is not None else 1
+        h, hkv = self.num_heads // n, self.num_kv_heads // n
         if self.fused_qkv:
-            p = self.qkv(x).reshape(*lead, self.num_heads, 3, self.head_dim)
+            p = self.qkv(x).reshape(*lead, h, 3, self.head_dim)
             return p[..., 0, :], p[..., 1, :], p[..., 2, :]
-        return (self.q_proj(x).reshape(*lead, self.num_heads, self.head_dim),
-                self.k_proj(x).reshape(*lead, self.num_kv_heads,
-                                       self.head_dim),
-                self.v_proj(x).reshape(*lead, self.num_kv_heads,
-                                       self.head_dim))
+        return (self.q_proj(x).reshape(*lead, h, self.head_dim),
+                self.k_proj(x).reshape(*lead, hkv, self.head_dim),
+                self.v_proj(x).reshape(*lead, hkv, self.head_dim))
+
+    def _out(self, out: torch.Tensor, tp=None) -> torch.Tensor:
+        """out_proj over the heads' output [..., heads * hd]: under `tp`
+        row-parallel over this rank's heads, the partial products summed
+        over the ranks in fp (JAX's GSPMD psum in both modes), the bias
+        added after the sum."""
+        if tp is None:
+            return self.out_proj(out)
+        from paddle_tpu_torch.parallel.collective import all_reduce
+        lin = self.out_proj
+        y = all_reduce(torch.matmul(out.to(lin.dtype),
+                                    lin.weight.to(lin.dtype)), tp.group)
+        return y if lin.bias is None else y + lin.bias.to(lin.dtype)
 
     def forward(self, x: torch.Tensor, segment_ids=None,
                 generator: Optional[torch.Generator] = None,
@@ -195,23 +221,26 @@ class MultiHeadAttention(nn.Module):
                           context_lens: torch.Tensor, q_starts: torch.Tensor,
                           tile_rows: torch.Tensor, tile_offs: torch.Tensor,
                           slots: torch.Tensor,
-                          qpool: Optional[QPool] = None) -> torch.Tensor:
+                          qpool: Optional[QPool] = None,
+                          tp=None) -> torch.Tensor:
         """Mixed prefill+decode step over the FLAT ragged packing: x
         [T, D]. The step's k/v is scattered into the pools at `slots`
         [T] first (in place), then one attention call serves every row.
         `qpool` = (kq, vq, k_scales, v_scales) threads this layer's int8
         tier into the call: bias-encoded (negative) table entries read
-        it in place. Writes always target the fp pool. Returns out
-        [T, D]."""
+        it in place. Writes always target the fp pool. Under `tp` the
+        pools are this rank's head slices and attention runs at its
+        local heads. Returns out [T, D]."""
         t = x.shape[0]
-        qh, kh, vh = self._project(x)
+        qh, kh, vh = self._project(x, tp)
         self._scatter(k_pool, v_pool, kh, vh, slots)
         kq, vq, ksc, vsc = qpool if qpool is not None else (None,) * 4
-        out = paged.ragged_paged_attention(
-            qh.contiguous(), k_pool, v_pool, block_tables, context_lens,
-            q_starts, tile_rows, tile_offs, kq_pool=kq, vq_pool=vq,
-            k_scales=ksc, v_scales=vsc)                          # [T, H, hd]
-        return self.out_proj(out.reshape(t, self.model_dim))
+        args = (qh.contiguous(), k_pool, v_pool, block_tables, context_lens,
+                q_starts, tile_rows, tile_offs)
+        quant = dict(kq_pool=kq, vq_pool=vq, k_scales=ksc, v_scales=vsc)
+        out = (paged.ragged_paged_attention(*args, **quant) if tp is None
+               else paged.ragged_paged_attention_tp(tp, *args, **quant))
+        return self._out(out.reshape(t, -1), tp)                  # [T, D]
 
     def decode_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
@@ -233,19 +262,20 @@ class MultiHeadAttention(nn.Module):
                             k_pool: torch.Tensor, v_pool: torch.Tensor,
                             block_tables: torch.Tensor,
                             context_lens: torch.Tensor,
-                            slots: torch.Tensor) -> torch.Tensor:
+                            slots: torch.Tensor, tp=None) -> torch.Tensor:
         """Chunked prefill through the paged cache: x [B, C, D], a window
         of each prompt at absolute q_positions [B, C]; slots [B*C]
         receive the chunk's k/v first (in place), then every chunk query
-        attends causally over the cached prefix and the chunk. Returns
-        out [B, C, D]."""
+        attends causally over the cached prefix and the chunk (under
+        `tp` at this rank's heads). Returns out [B, C, D]."""
         b, c = x.shape[:2]
-        qh, kh, vh = self._project(x)
+        qh, kh, vh = self._project(x, tp)
         self._scatter(k_pool, v_pool, kh.reshape(-1, *kh.shape[2:]),
                       vh.reshape(-1, *vh.shape[2:]), slots)
-        out = paged.paged_prefill_attention(qh, k_pool, v_pool, block_tables,
-                                            context_lens, q_positions)
-        return self.out_proj(out.reshape(b, c, self.model_dim))
+        args = (qh, k_pool, v_pool, block_tables, context_lens, q_positions)
+        out = (paged.paged_prefill_attention(*args) if tp is None
+               else paged.paged_prefill_attention_tp(tp, *args))
+        return self._out(out.reshape(b, c, -1), tp)
 
 
 class FeedForward(nn.Module):
@@ -261,6 +291,21 @@ class FeedForward(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         return self.fc2(self.drop(torch.relu(self.fc1(x)), generator))
+
+    def forward_serve_tp(self, x: torch.Tensor, tp) -> torch.Tensor:
+        """Megatron column-then-row MLP of the tensor-parallel serve
+        step: fc1 over this rank's columns (its bias sharded with them,
+        no collective), then fc2 row-parallel over those features, whose
+        one reduce takes the serving collective's mode (int8 by default,
+        `PTPU_SERVE_ALLREDUCE=fp` for the exact sum). fc2's bias is added
+        after the reduce."""
+        from paddle_tpu_torch.parallel.serve_collective import \
+            row_parallel_matmul
+        h = self.drop(torch.relu(self.fc1(x)))
+        fc2 = self.fc2
+        y = row_parallel_matmul(h.to(fc2.dtype), fc2.weight.to(fc2.dtype),
+                                tp)
+        return y if fc2.bias is None else y + fc2.bias.to(fc2.dtype)
 
 
 class CausalBlock(nn.Module):
@@ -300,18 +345,21 @@ class CausalBlock(nn.Module):
         return self._ffn_residual(x, h, generator), cache
 
     def _ffn_residual(self, x: torch.Tensor, h: torch.Tensor,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      tp=None) -> torch.Tensor:
         x = x + self.drop(h, generator)
-        return x + self.drop(self.ffn(self.ln2(x), generator), generator)
+        f = (self.ffn(self.ln2(x), generator) if tp is None
+             else self.ffn.forward_serve_tp(self.ln2(x), tp))
+        return x + self.drop(f, generator)
 
     def ragged_step_paged(self, x, k_pool, v_pool, block_tables,
                           context_lens, q_starts, tile_rows, tile_offs,
-                          slots, qpool: Optional[QPool] = None
+                          slots, qpool: Optional[QPool] = None, tp=None
                           ) -> torch.Tensor:
         return self._ffn_residual(x, self.attn.ragged_step_paged(
             self.ln1(x), k_pool, v_pool, block_tables, context_lens,
-            q_starts, tile_rows, tile_offs, slots, qpool=qpool))
+            q_starts, tile_rows, tile_offs, slots, qpool=qpool, tp=tp),
+            tp=tp)
 
     def decode_paged(self, x, k_pool, v_pool, block_tables, context_lens,
                      slots) -> torch.Tensor:
@@ -319,11 +367,11 @@ class CausalBlock(nn.Module):
             self.ln1(x), k_pool, v_pool, block_tables, context_lens, slots))
 
     def prefill_chunk_paged(self, x, q_positions, k_pool, v_pool,
-                            block_tables, context_lens,
-                            slots) -> torch.Tensor:
+                            block_tables, context_lens, slots,
+                            tp=None) -> torch.Tensor:
         return self._ffn_residual(x, self.attn.prefill_chunk_paged(
             self.ln1(x), q_positions, k_pool, v_pool, block_tables,
-            context_lens, slots))
+            context_lens, slots, tp=tp), tp=tp)
 
 
 class CausalLM(nn.Module):
@@ -527,8 +575,8 @@ class CausalLM(nn.Module):
                           tile_rows: torch.Tensor, tile_offs: torch.Tensor,
                           slots: torch.Tensor,
                           last_idx: torch.Tensor,
-                          qpools: Pools = (), qscales: Pools = ()
-                          ) -> torch.Tensor:
+                          qpools: Pools = (), qscales: Pools = (),
+                          tp=None) -> torch.Tensor:
         """ONE mixed prefill+decode serve step over the flat ragged
         packing. tokens [T] ids and positions [T] are the flat packing
         (pad positions carry token 0 at position 0 and scatter to
@@ -542,7 +590,9 @@ class CausalLM(nn.Module):
         (per layer (kq, vq)) and `qscales` (per layer (k, v) scales) —
         the engine's int8 tier; empty when it is off — every layer's
         attention call takes its int8 pools, so the call has one shape
-        whether a batch is fp-only, mixed or all-int8."""
+        whether a batch is fp-only, mixed or all-int8. `tp` (a ServeTP)
+        runs this rank's shard: the model holds its shard of the weights
+        and the pools are its head slices."""
         x = self.embed(tokens.long()) * math.sqrt(self.model_dim)  # [T, D]
         x = x + self.pe[self._clip(positions)].to(x.dtype)
         slots = slots.long()
@@ -550,7 +600,7 @@ class CausalLM(nn.Module):
             qpool = (*qpools[li], *qscales[li]) if qpools else None
             x = blk.ragged_step_paged(x, k_pool, v_pool, block_tables,
                                       context_lens, q_starts, tile_rows,
-                                      tile_offs, slots, qpool=qpool)
+                                      tile_offs, slots, qpool=qpool, tp=tp)
         # LayerNorm is row-wise, so gathering the sampled rows first
         # gives the same values as normalising all T rows
         idx = last_idx.long()
@@ -566,13 +616,14 @@ class CausalLM(nn.Module):
                             start_pos: torch.Tensor, pools: Pools,
                             block_tables: torch.Tensor,
                             context_lens: torch.Tensor, slots: torch.Tensor,
-                            last_idx: torch.Tensor) -> torch.Tensor:
+                            last_idx: torch.Tensor, tp=None) -> torch.Tensor:
         """Chunked/suffix-only prefill of the split path: tokens [B, C]
         is ONE window of each prompt (right-padded; pad positions
         scatter to scratch slot 0), start_pos [B] the absolute position
         of each row's first window token. k/v lands in the pools in
         place (JAX returns new pools); attention runs causally through
-        the pools (cached prefix + this chunk). Returns logits [B, V] at each row's within-chunk
+        the pools (cached prefix + this chunk), under `tp` at this
+        rank's shard. Returns logits [B, V] at each row's within-chunk
         `last_idx`."""
         b, c = tokens.shape
         x = self.embed(tokens.long()) * math.sqrt(self.model_dim)
@@ -582,7 +633,7 @@ class CausalLM(nn.Module):
         slots = slots.long()
         for blk, (k_pool, v_pool) in zip(self.blocks, pools):
             x = blk.prefill_chunk_paged(x, pos, k_pool, v_pool, block_tables,
-                                        context_lens, slots)
+                                        context_lens, slots, tp=tp)
         hidden = self.ln_f(x)
         last_h = hidden[torch.arange(b, device=tokens.device),
                         last_idx.long()]

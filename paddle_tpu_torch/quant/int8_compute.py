@@ -22,7 +22,7 @@ per array, dequantized as q * (scale / QMAX).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +35,25 @@ KV_SCALE_FLOOR = 1e-30
 RQMAX = float(np.float32(1.0) / np.float32(QMAX))
 
 
-def quantize_block(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def block_scale(x: torch.Tensor) -> torch.Tensor:
+    """quantize_block's scale: the abs-max over the trailing (block_size,
+    heads, head_dim) axes, floored at KV_SCALE_FLOOR. Under tensor
+    parallelism a rank holds some of the heads, and the block's scale is
+    the MAX of the ranks' scales (a max of floored values is the floored
+    max)."""
+    return x.float().abs().amax(dim=(-3, -2, -1)).clamp_min(KV_SCALE_FLOOR)
+
+
+def quantize_block(x: torch.Tensor, scale: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize over the trailing (block_size, heads, head_dim) axes: a
     3-D block gives a scalar scale, a 4-D [lanes, ...] batch one scale
-    per lane. Returns (int8 tensor, f32 scales of shape x.shape[:-3])."""
+    per lane. `scale` (default `block_scale(x)`) gives the scales to
+    quantize with. Returns (int8 tensor, f32 scales of shape
+    x.shape[:-3])."""
     xf = x.float()
-    scale = xf.abs().amax(dim=(-3, -2, -1)).clamp_min(KV_SCALE_FLOOR)
+    if scale is None:
+        scale = block_scale(x)
     q = torch.round(xf / scale[..., None, None, None] * QMAX)
     return q.clamp(-QMAX, QMAX).to(torch.int8), scale
 

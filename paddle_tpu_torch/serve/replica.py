@@ -15,8 +15,10 @@ ServeFrontend, warms the one step program, and prints a single
 `--device` picks where it serves: the CUDA card by default, the CPU only
 when `--device cpu` is passed. Without a card and without `--device cpu`
 the replica exits non-zero with a message; it never serves on the CPU
-unasked. `--tp-size` above 1 raises NotImplementedError (tensor-parallel
-serving is ROADMAP.md §1 item 8).
+unasked. `--tp-size N` serves a tensor-parallel engine over N ranks
+(engine/tp_worker.py): on the card one card a rank, cuda:0..N-1 (fewer
+cards exit non-zero naming the count); with `--device cpu` N gloo ranks
+on the CPU.
 
 SIGTERM drains: in-flight streams finish (bounded by
 --drain-deadline-s), then the process exits 75 (PREEMPT_EXIT_CODE) —
@@ -94,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "drain-time only); lets a SIGKILLed replica "
                         "warm-start from a recent snapshot")
     p.add_argument("--tp-size", type=int, default=1,
-                   help="tensor-parallel degree; only 1 is served (> 1 "
-                        "raises NotImplementedError: ROADMAP.md item 8)")
+                   help="tensor-parallel degree: > 1 serves over that many "
+                        "ranks, one card each (cuda:0..N-1), or all on "
+                        "the CPU with --device cpu")
     p.add_argument("--phase", default="mixed",
                    choices=("prefill", "decode", "mixed"),
                    help="disaggregated-serving phase advertised to the "
@@ -160,21 +163,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_TP_ITEM = ("tensor-parallel serving (--tp-size > 1) is not ported yet: "
-            "ROADMAP.md section 1, item 8")
-
-
-def serving_device(a: argparse.Namespace) -> torch.device:
-    """The device the replica serves on: `--device` (the card by
-    default). Raises RuntimeError when it names a card that is not
-    there, and NotImplementedError for `--tp-size` > 1."""
-    if a.tp_size > 1:
-        raise NotImplementedError(_TP_ITEM)
+def serving_device(a: argparse.Namespace):
+    """Where the replica serves: `--device` (the card by default), or
+    with `--tp-size` > 1 the ranks' devices. Raises RuntimeError when it
+    names a card that is not there, and ValueError when --tp-size needs
+    more cards than there are."""
     try:
-        return resolve_device(a.device)
+        dev = resolve_device(a.device)
     except RuntimeError:
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to serve on the CPU") from None
+    if a.tp_size > 1:
+        from paddle_tpu_torch.engine.engine import tp_devices
+        return tp_devices(a.tp_size, "cpu" if dev.type == "cpu" else None)
+    return dev
 
 
 def seeded_causal_lm(a: argparse.Namespace,
@@ -213,6 +215,7 @@ def build_frontend(a: argparse.Namespace):
     from paddle_tpu_torch.serve.frontend import ServeFrontend
 
     device = serving_device(a)
+    model_device = device[0] if isinstance(device, list) else device
     registry = MetricsRegistry()    # private: one process, one story
     engine_kw = dict(
         max_batch_size=a.max_batch_size, block_size=a.block_size,
@@ -221,12 +224,12 @@ def build_frontend(a: argparse.Namespace):
         spec_k=a.spec_k, registry=registry,
         host_tier_bytes=a.host_tier_bytes, kv_tier_int8=a.kv_tier_int8,
         kv_compress_blocks=a.kv_compress_blocks,
-        tier_spill_dir=a.tier_spill_dir,
+        tier_spill_dir=a.tier_spill_dir, tp_size=a.tp_size,
         demote_finished=(a.phase == "prefill"), device=device)
     if a.model_dir:
         engine = ServeEngine.from_saved_model(a.model_dir, **engine_kw)
     else:
-        engine = ServeEngine(seeded_causal_lm(a, device), **engine_kw)
+        engine = ServeEngine(seeded_causal_lm(a, model_device), **engine_kw)
     slo = SLOMonitor(
         registry,
         objectives=default_objectives(
@@ -261,13 +264,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     a = build_parser().parse_args(argv)
     try:
         serving_device(a)
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         print(f"paddle_tpu_torch.serve.replica: {e}", file=sys.stderr)
         return 2
     frontend = build_frontend(a)
-    frontend.start().install_signals()
-    code = frontend.wait()      # blocks until a drain completes
-    frontend._teardown()
+    try:
+        frontend.start().install_signals()
+        code = frontend.wait()      # blocks until a drain completes
+        frontend._teardown()
+    finally:
+        frontend.engine.close()     # a tp engine's workers
     return code if code is not None else 0
 
 

@@ -49,7 +49,9 @@ def test_scan_covers_the_package():
                 "obs/tracing.py", "serve/__init__.py", "serve/sse.py",
                 "serve/tokenizer.py", "serve/aio.py", "serve/kvxfer.py",
                 "serve/frontend.py", "serve/router.py",
-                "serve/replica.py"):
+                "serve/replica.py", "parallel/distributed.py",
+                "parallel/collective.py", "parallel/sharding.py",
+                "parallel/serve_collective.py", "engine/tp_worker.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names

@@ -52,6 +52,11 @@ CASES = {
     "chunk_across_splits": ([(300, 100), (712, 456), (20, 1)],
                             8, 8, 64, 16, 8),
     "gqa_across_splits": ([(600, 40), (530, 1), (257, 9)], 8, 2, 64, 16, 8),
+    # one rank's heads under tensor parallelism (tp=2): the LM's 8 heads
+    # over 8 give 4 over 4 a rank; the GQA test fixture's 4 over 2 give
+    # 2 over 1
+    "tp_rank_4_over_4": ([(300, 1), (712, 456), (40, 40)], 4, 4, 64, 16, 8),
+    "tp_rank_2_over_1": ([(7, 3), (11, 1), (270, 9)], 2, 1, 8, 4, 4),
 }
 
 
@@ -558,6 +563,80 @@ def test_engine_on_card_goes_through_the_kernel():
     assert len(eng.step_shapes) == 1
     assert len(eng.step_graph.graphs) == 1
     eng.cache.assert_quiesced()
+
+
+def test_capture_survives_a_garbage_engine():
+    """An engine that became garbage (engines hold reference cycles, so
+    the cyclic collector frees them) must not be collected while another
+    engine captures its graph: destroying a graph is a CUDA call that
+    invalidates a capture in progress. With the collector at its most
+    eager, build engines one after another."""
+    import gc
+
+    _need_card()
+    dims = dict(model_dim=64, num_heads=8, num_layers=2, ffn_dim=128)
+    model = CausalLM(97, dropout=0.0, max_len=128, device="cuda", **dims)
+    load_jax_params(model, causal_lm_tree(0, 97, **dims))
+    kw = dict(max_batch_size=4, block_size=16, num_blocks=64,
+              max_prefill_tokens=32, tile_q=8, device="cuda")
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = None
+        for _ in range(3):
+            eng = None      # the last engine is garbage from here
+            eng = ServeEngine(model, registry=MetricsRegistry(), **kw)
+            assert len(eng.step_graph.graphs) == 1
+            eng.generate([[1, 2, 3]], max_new_tokens=2)
+    finally:
+        gc.set_threshold(*threshold)
+
+
+def test_tp2_engine_on_a_shared_card():
+    """A tp=2 engine with both ranks on one card (gloo data plane): fp
+    streams equal a tp=1 engine's, every rank launches kernel 1 once a
+    layer a step (4 query heads over 2 kv heads split 2 over 1 a rank),
+    a rank holds half the pool bytes, and the worker exits 0."""
+    import os
+
+    _need_card()
+    dims = dict(model_dim=64, num_heads=4, num_layers=2, ffn_dim=128,
+                num_kv_heads=2)
+    model = CausalLM(97, dropout=0.0, max_len=128, device="cuda", **dims)
+    load_jax_params(model, causal_lm_tree(0, 97, **dims))
+    kw = dict(max_batch_size=4, block_size=16, num_blocks=64,
+              max_prefill_tokens=32, tile_q=8)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 97, n).tolist() for n in (5, 40, 17, 1)]
+    ref = ServeEngine(model, registry=MetricsRegistry(), device="cuda", **kw)
+    want = ref.generate(prompts, max_new_tokens=6)
+    prev = os.environ.get("PTPU_SERVE_ALLREDUCE")
+    os.environ["PTPU_SERVE_ALLREDUCE"] = "fp"
+    try:
+        eng = ServeEngine(model, registry=MetricsRegistry(), tp_size=2,
+                          device=["cuda:0", "cuda:0"], **kw)
+    finally:
+        if prev is None:
+            os.environ.pop("PTPU_SERVE_ALLREDUCE")
+        else:
+            os.environ["PTPU_SERVE_ALLREDUCE"] = prev
+    try:
+        assert eng.tp_backend == "gloo"
+        eng.rank_state(reset_launches=True)
+        before = paged.ragged_paged_attention.launches
+        assert eng.generate(prompts, max_new_tokens=6) == want
+        states = eng.rank_state()
+        launches = [s["launches"]["ragged_paged_attention.launches"]
+                    for s in states]
+        launches[0] -= before
+        assert launches == [eng.steps * dims["num_layers"]] * 2
+        assert [2 * s["pool_bytes"] for s in states] == \
+            [ref.cache.per_chip_pool_bytes()] * 2
+        assert eng.step_graph.compiles == 1 and eng.step_graph.graphs == []
+        eng.cache.assert_quiesced()
+    finally:
+        eng.close()
+    assert eng.worker_exit_codes == [0]
 
 
 def test_out_of_vocabulary_id_leaves_the_card_serving():

@@ -4,9 +4,9 @@ guard): a mirror of tests/test_resilience.py — retry policy, checkpoint
 integrity and corrupt-fallback, stale-marker hygiene, the bad-step
 guard, supervisor signal/watchdog plumbing, structured recovery events.
 
-`test_init_distributed_retries_rendezvous` has no counterpart here:
-the port's distributed init comes with its meshes over
-torch.distributed (ROADMAP.md item 10).
+`test_init_distributed_retries_rendezvous`'s counterpart is in
+tests/test_torch_distributed.py, beside the rest of the port's
+multi-process runtime.
 
 The model is two torch.nn.Linear layers (the port has no MLP yet),
 trained by the port's MeshTrainer on a CPU mesh."""

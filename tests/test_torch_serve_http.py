@@ -524,13 +524,30 @@ class TestReplicaDevice:
             ["--port", "0", "--device", "cpu"]))
         assert fe.engine.device.type == "cpu"
 
-    def test_tp_size_above_one_is_not_ported(self):
+    def test_tp_size_above_one_is_not_ported(self, monkeypatch):
+        """(Named before tensor parallelism was ported; the name is kept
+        so the test keeps its history.) --tp-size 2 --device cpu builds
+        a tensor-parallel engine over two gloo ranks on the CPU; on the
+        card, fewer cards than --tp-size exit non-zero naming the
+        count."""
         from paddle_tpu_torch.serve import replica
 
         a = replica.build_parser().parse_args(
             ["--device", "cpu", "--tp-size", "2"])
-        with pytest.raises(NotImplementedError, match="item 8"):
-            replica.build_frontend(a)
+        fe = replica.build_frontend(a)
+        try:
+            assert fe.engine.tp_size == 2
+            assert fe.engine.tp_devices == [torch.device("cpu")] * 2
+            assert fe.engine.tp_backend == "gloo"
+        finally:
+            fe.engine.close()
+        assert fe.engine.worker_exit_codes == [0]
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        a = replica.build_parser().parse_args(["--tp-size", "2"])
+        with pytest.raises(ValueError, match="needs 2 CUDA devices, have 1"):
+            replica.serving_device(a)
+        assert replica.main(["--port", "0", "--tp-size", "2"]) == 2
 
 
 class TestWarmupFallback:

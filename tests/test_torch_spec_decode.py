@@ -440,10 +440,14 @@ class TestSpeculativeDecode:
                    for g in got)
 
     def test_negative_spec_k_and_tp_size_raise(self, models):
+        """A negative spec_k and a tp_size the engine cannot take raise
+        ValueError before anything is built (tp_size 0, and 3 over 4
+        heads; tests/test_torch_tp_serve.py serves tp_size 2)."""
         with pytest.raises(ValueError, match="spec_k"):
             _engine(models, spec_k=-1)
-        with pytest.raises(TypeError, match="tp_size"):
-            _engine(models, tp_size=2)
+        for tp in (0, 3):
+            with pytest.raises(ValueError, match="tp_size"):
+                _engine(models, tp_size=tp)
 
 
 # -- parallel sampling / best-of-n -----------------------------------------
