@@ -54,7 +54,15 @@ user calls:
 - `resume`: the train path saved by a `CheckpointManager` after 3 of 6
   steps and resumed by a Trainer made anew, bit for bit against the
   straight run; `optimizers`: the fourteen optimizers and
-  `ModelAverage` on the card against the CPU.
+  `ModelAverage` on the card against the CPU;
+- `bert`: BERT-base MLM pretraining (`BertEncoder`, bf16, B 32 x T 128
+  with padding as segment ids) — the flash kernels non-causal; one f32
+  step at 2 layers held against their plain versions;
+- `seq2seq`: Transformer-base WMT training (bf16, B 16 x T 256, source
+  padding as segment ids) — the flash kernels in the encoder and the
+  decoder's causal self-attention — then, in f32, `beam_search` over
+  `decode_step` and greedy decoding through `decode_step` and
+  `decode_step_paged` (the paged-decode kernel).
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -96,12 +104,15 @@ from paddle_tpu_torch.engine.tp_worker import param_bytes
 from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
-from paddle_tpu_torch.models import CausalLM, load_jax_params
+from paddle_tpu_torch.models import (BertEncoder, CausalLM, Transformer,
+                                     load_jax_params, to_jax_params)
 from paddle_tpu_torch.obs import (DeviceMemoryMonitor, FlightRecorder,
                                   GoodputLedger, MetricsServer,
                                   causal_lm_step_flops, param_count)
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
-from paddle_tpu_torch.ops import linear_cross_entropy
+from paddle_tpu_torch.ops import (beam_search, linear_cross_entropy,
+                                  softmax_with_cross_entropy, tile_beams)
+from paddle_tpu_torch.ops.sequence import sequence_mask
 from paddle_tpu_torch.optim import Adam
 from paddle_tpu_torch.parallel import DistStrategy, MeshTrainer, make_mesh
 from paddle_tpu_torch.resilience import PREEMPT_EXIT_CODE, chaos
@@ -112,12 +123,13 @@ from paddle_tpu_torch.serve.router import Router
 from paddle_tpu_torch.serve.sse import (http_get, parse_prometheus_values,
                                         stream_completion)
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
-                                      RAGGED_ARGS, STEP_ARGS, causal_lm_tree,
+                                      RAGGED_ARGS, STEP_ARGS, bert_tree,
+                                      causal_lm_tree,
                                       decode_as_ragged, flash_case,
                                       int8_blocks, lm_stream,
                                       pack_prompts, packed_segment_ids,
                                       paged_case, ragged_case,
-                                      write_serving_export)
+                                      transformer_tree, write_serving_export)
 from paddle_tpu_torch.utils.log import add_event_tap, remove_event_tap
 from paddle_tpu_torch.utils.tree import flatten_with_keys
 
@@ -2157,10 +2169,13 @@ def _flash_inputs(b: int, t: int, h: int, hkv: int, d: int,
     return [x.to(dtype).contiguous() for x in (q, k, v, do)]
 
 
-def _flash_mode(mode: str, b: int, t: int, device: torch.device):
-    """(kwargs, q_seg, kv_seg, seed) of a causal check: plain causal,
-    causal over packed documents, or causal with dropout 0.1."""
-    kw = dict(causal=True)
+def _flash_mode(mode: str, b: int, t: int, device: torch.device,
+                lengths: Tuple[int, int] = (1, 1)):
+    """(kwargs, q_seg, kv_seg, seed) of a check: plain causal, causal over
+    packed documents, causal with dropout 0.1, or `padding`: non-causal
+    over the segment ids an encoder makes of lengths drawn in `lengths`
+    (real 1, pad 0), as BertEncoder and Transformer.encode give them."""
+    kw = dict(causal=mode != "padding")
     segs = seed = None
     if mode == "segments":
         docs = [(t // 3, t // 4, t // 5), (t // 2,), (t // 7, t // 2),
@@ -2168,6 +2183,11 @@ def _flash_mode(mode: str, b: int, t: int, device: torch.device):
         segs = torch.from_numpy(np.stack(
             [packed_segment_ids(docs[i % len(docs)], t)
              for i in range(b)])).to(device)
+    if mode == "padding":
+        lo, hi = lengths
+        n = np.random.default_rng(SEED + t).integers(lo, hi + 1, b)
+        segs = sequence_mask(torch.from_numpy(n).to(device),
+                             t).to(torch.int32)
     if mode == "dropout":
         kw["dropout_rate"] = 0.1
         seed = torch.tensor([SEED], dtype=torch.int32, device=device)
@@ -2188,61 +2208,82 @@ def _flash_close(kernel: str, got, plain, atol: float, rtol: float,
     return err
 
 
+def _flash_check(worst: dict, shape, dtype: torch.dtype, mode: str,
+                 device: torch.device, seed: int, **info) -> None:
+    """Kernels 4, 5 and 6 each against its plain version on one case of
+    `shape` (B, T, H, Hkv, D) in `mode` (`_flash_mode`); folds each
+    kernel's error into `worst`."""
+    b, t, h, hkv, d = shape
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    f32 = dtype == torch.float32
+    otol = (1e-5, 1e-5) if f32 else (2e-2, 2e-2)
+    gtol = (1e-4, 1e-4) if f32 else (2e-2, 2e-2)
+    info = dict(info, heads=h, kv_heads=hkv, mode=mode, b=b, t=t, d=d,
+                dtype=str(dtype).replace("torch.", ""))
+    q, k, v, do = _flash_inputs(b, t, h, hkv, d, dtype, device, seed)
+    kw, q_seg, kv_seg, drop_seed = _flash_mode(mode, b, t, device,
+                                               info.get("lengths", (1, 1)))
+    kw["scale"] = d ** -0.5
+    plain = [x.float() for x in (q, k, v, do)]
+    o, lse = flash.flash_fwd(q, k, v, q_seg, kv_seg, drop_seed, **kw)
+    o_ref, lse_ref = flash.flash_fwd_reference(
+        *plain[:3], q_seg, kv_seg, drop_seed, **kw)
+    sync()
+    worst["flash_fwd"] = max(
+        worst["flash_fwd"],
+        _flash_close("flash_fwd", o, o_ref, *otol, **info),
+        _flash_close("flash_fwd", lse, lse_ref, *otol, output="lse", **info))
+    o_in = o_ref.to(dtype)
+    args = (q, k, v, o_in, lse_ref, do, q_seg, kv_seg, drop_seed)
+    ref = (*plain[:3], o_in.float(), lse_ref, plain[3], q_seg, kv_seg,
+           drop_seed)
+    dq = flash.flash_dq(*args, **kw)
+    dk, dv = flash.flash_dkv(*args, **kw)
+    sync()
+    worst["flash_dq"] = max(worst["flash_dq"], _flash_close(
+        "flash_dq", dq, flash.flash_dq_reference(*ref, **kw), *gtol, **info))
+    dk_ref, dv_ref = flash.flash_dkv_reference(*ref, **kw)
+    worst["flash_dkv"] = max(
+        worst["flash_dkv"],
+        _flash_close("flash_dkv", dk, dk_ref, *gtol, output="dk", **info),
+        _flash_close("flash_dkv", dv, dv_ref, *gtol, output="dv", **info))
+
+
 def phase_flash_vs_plain(cfg: dict, device: torch.device) -> dict:
     """Kernels 4, 5 and 6 each against its plain version on the same
     inputs at the train phase's attention shape (cfg["flash_check"]: B 4,
     T 2048, H 8, D 64 on the card), MHA and GQA 8:2 (k/v repeated as `mha` repeats them), causal,
-    causal over packed documents, and causal with dropout 0.1; f32 at
-    1e-5 (o, lse) and 1e-4 (dq, dk, dv), bf16 against the plain version
-    run in f32 on the same bf16 values at 2e-2 (absolute and relative:
-    the kernel rounds p, ds and g to bf16). The backward kernels take
-    the plain forward's o and lse, so each kernel is held alone. Then
-    GQA end to end: `mha` with 2 kv heads on the card against autograd
-    through the plain forward over the repeated heads. Returns the worst
-    error per kernel."""
+    causal over packed documents, and causal with dropout 0.1; then at
+    the encoder models' shapes and modes: `bert`'s (B 32, T 128, H 12)
+    and the seq2seq encoder's (B 16, T 256, H 8), non-causal with the
+    padding of lengths in each phase's range as segment ids, and the
+    seq2seq decoder's causal self-attention. f32 at 1e-5 (o, lse) and
+    1e-4 (dq, dk, dv), bf16 (the tensor-core kernels) against the plain
+    version run in f32 on the same bf16 values at 2e-2 (absolute and
+    relative: the kernel rounds p, ds and g to bf16). The backward
+    kernels take the plain forward's o and lse, so each kernel is held
+    alone. Then GQA end to end: `mha` with 2 kv heads on the card
+    against autograd through the plain forward over the repeated heads.
+    Returns the worst error per kernel."""
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     b, t, h, d = cfg["flash_check"]
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    dtypes = (torch.float32, torch.bfloat16)
     for hkv in (h, cfg["gqa_kv_heads"]):
-        for dtype in (torch.float32, torch.bfloat16):
-            f32 = dtype == torch.float32
-            otol = (1e-5, 1e-5) if f32 else (2e-2, 2e-2)
-            gtol = (1e-4, 1e-4) if f32 else (2e-2, 2e-2)
+        for dtype in dtypes:
             for mode in ("causal", "segments", "dropout"):
-                info = dict(heads=h, kv_heads=hkv, mode=mode, t=t, d=d,
-                            dtype=str(dtype).replace("torch.", ""))
-                q, k, v, do = _flash_inputs(b, t, h, hkv, d, dtype, device,
-                                            SEED + hkv)
-                kw, q_seg, kv_seg, seed = _flash_mode(mode, b, t, device)
-                kw["scale"] = d ** -0.5
-                plain = [x.float() for x in (q, k, v, do)]
-                o, lse = flash.flash_fwd(q, k, v, q_seg, kv_seg, seed, **kw)
-                o_ref, lse_ref = flash.flash_fwd_reference(
-                    *plain[:3], q_seg, kv_seg, seed, **kw)
-                sync()
-                worst["flash_fwd"] = max(
-                    worst["flash_fwd"],
-                    _flash_close("flash_fwd", o, o_ref, *otol, **info),
-                    _flash_close("flash_fwd", lse, lse_ref, *otol,
-                                 output="lse", **info))
-                o_in = o_ref.to(dtype)
-                args = (q, k, v, o_in, lse_ref, do, q_seg, kv_seg, seed)
-                ref = (*plain[:3], o_in.float(), lse_ref, plain[3], q_seg,
-                       kv_seg, seed)
-                dq = flash.flash_dq(*args, **kw)
-                dk, dv = flash.flash_dkv(*args, **kw)
-                sync()
-                worst["flash_dq"] = max(worst["flash_dq"], _flash_close(
-                    "flash_dq", dq, flash.flash_dq_reference(*ref, **kw),
-                    *gtol, **info))
-                dk_ref, dv_ref = flash.flash_dkv_reference(*ref, **kw)
-                worst["flash_dkv"] = max(
-                    worst["flash_dkv"],
-                    _flash_close("flash_dkv", dk, dk_ref, *gtol,
-                                 output="dk", **info),
-                    _flash_close("flash_dkv", dv, dv_ref, *gtol,
-                                 output="dv", **info))
+                _flash_check(worst, (b, t, h, hkv, d), dtype, mode, device,
+                             SEED + hkv)
+    for name, modes in (("bert", ("padding",)),
+                        ("seq2seq", ("padding", "causal"))):
+        mc = cfg[name]
+        mh = mc["num_heads"]
+        shape = (mc["batch"], mc["seq"], mh, mh, mc["model_dim"] // mh)
+        for dtype in dtypes:
+            for mode in modes:
+                _flash_check(worst, shape, dtype, mode, device, SEED + 70,
+                             model=name, lengths=mc["lengths"])
     # GQA end to end through mha (kernels on the card), f32
     hkv = cfg["gqa_kv_heads"]
     case = flash_case(b, t, t, h, d, SEED + 3)
@@ -2621,6 +2662,47 @@ def _grad_gap(got: dict, want: dict, skip) -> dict:
     return out
 
 
+def _step_vs_plain(build, loss_fn, batch, layers: int, seed: int,
+                   lr: float, cuda: bool) -> Tuple[float, dict, dict, dict]:
+    """One Trainer step three ways on the same weights and batch: through
+    the flash kernels, through their plain versions (`plain_flash`) and
+    through `mha`'s dense path (`dense_attention`). `build()` returns
+    (a model made anew, its FFNs), whose ReLU gates are recorded.
+    Returns (the plain loss, the plain gradients, the tensors
+    zero up to rounding, {kernels, dense}: each run's loss and gradient
+    gaps to the plain run, and its ReLU gate flips)."""
+    runs = {}
+    for name, ctx, launched in (
+            ("kernels", contextlib.nullcontext(), 1),
+            ("plain", plain_flash(), 0), ("dense", dense_attention(), 0)):
+        model, ffns = build()
+        trainer = Trainer(model, Adam(model.parameters(), lr), loss_fn,
+                          seed=seed)
+        gates = []
+        hooks = [ffn.fc1.register_forward_hook(
+            lambda mod, inp, out: gates.append(out.detach() > 0))
+            for ffn in ffns]
+        _reset_launches()
+        with ctx:
+            loss = float(trainer.train_step(batch)["loss"])
+        for hook in hooks:
+            hook.remove()
+        _expect_launches(FLASH_KERNELS, launched, layers, cuda)
+        runs[name] = (loss, {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}, gates)
+        del model, trainer
+    lp, gp, mp = runs["plain"]
+    noise = _noise_only(gp, runs["dense"][1])
+    out = {}
+    for name in ("kernels", "dense"):
+        loss, grads, gates = runs[name]
+        out[name] = {"loss": loss, "loss_rel_err": abs(loss - lp) / abs(lp),
+                     **_grad_gap(grads, gp, noise),
+                     "relu_gate_flips": sum(int((a != b).sum())
+                                            for a, b in zip(gates, mp))}
+    return lp, gp, noise, out
+
+
 def phase_train_vs_plain(cfg: dict, tree: dict,
                          device: torch.device) -> None:
     """One f32 Trainer step at full width through the kernels, and the
@@ -2642,35 +2724,12 @@ def phase_train_vs_plain(cfg: dict, tree: dict,
     cuda = device.type == "cuda"
     batch = _lm_batches(cfg, 1, cfg["tvp_batch"], device, SEED + 10)[0]
     layers = cfg["lm"]["num_layers"]
-    runs = {}
-    for name, ctx, launched in (
-            ("kernels", contextlib.nullcontext(), 1),
-            ("plain", plain_flash(), 0), ("dense", dense_attention(), 0)):
+
+    def build():
         model = _lm(cfg, tree, torch.float32, device)
-        trainer = Trainer(model, Adam(model.parameters(), cfg["train_lr"]),
-                          lm_loss, seed=SEED)
-        gates = []
-        hooks = [blk.ffn.fc1.register_forward_hook(
-            lambda mod, inp, out: gates.append(out.detach() > 0))
-            for blk in model.blocks]
-        _reset_launches()
-        with ctx:
-            loss = float(trainer.train_step(batch)["loss"])
-        for hook in hooks:
-            hook.remove()
-        _expect_launches(FLASH_KERNELS, launched, layers, cuda)
-        runs[name] = (loss, {n: p.grad.detach().clone()
-                             for n, p in model.named_parameters()}, gates)
-        del model, trainer
-    lp, gp, mp = runs["plain"]
-    noise = _noise_only(gp, runs["dense"][1])
-    out = {}
-    for name in ("kernels", "dense"):
-        loss, grads, gates = runs[name]
-        out[name] = {"loss": loss, "loss_rel_err": abs(loss - lp) / abs(lp),
-                     **_grad_gap(grads, gp, noise),
-                     "relu_gate_flips": sum(int((a != b).sum())
-                                            for a, b in zip(gates, mp))}
+        return model, [blk.ffn for blk in model.blocks]
+    lp, gp, noise, out = _step_vs_plain(build, lm_loss, batch, layers, SEED,
+                                        cfg["train_lr"], cuda)
     ok = all(r["loss_rel_err"] <= 1e-4 and r["grad_worst_over_bar"] <= 1.0
              for r in out.values())
     emit({"phase": "train_vs_plain", "dtype": "float32",
@@ -3419,6 +3478,357 @@ def phase_optimizers(cfg: dict, device: torch.device) -> None:
     check(not bad, f"optimizers on the card vs the CPU: {bad}")
 
 
+# -- the encoder models: BERT MLM and the seq2seq Transformer --------------
+
+def _phase_mem(cuda: bool) -> Optional[int]:
+    """Reset the card's peak-memory gauge; returns the bytes allocated."""
+    if not cuda:
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _timed_steps(trainer, batch, steps: int, cuda: bool
+                 ) -> Tuple[List[float], List[float]]:
+    """`steps` Trainer steps on one batch: (losses, host ms a step; each
+    loss is read at once, which waits for the step)."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return losses, step_ms
+
+
+def bert_loss(module, batch, generator, training):
+    """Mean MLM cross-entropy over the masked positions, in float32
+    (paddle_tpu/benchmark/models.py:_bert)."""
+    tokens, positions, lengths, labels = batch
+    logits = module(tokens, positions, lengths, generator=generator)
+    return softmax_with_cross_entropy(logits.float(), labels).mean(), {}
+
+
+def _bert_model(bc: dict, layers: int, dtype: torch.dtype,
+                device: torch.device) -> BertEncoder:
+    dims = dict(vocab=bc["vocab"], model_dim=bc["model_dim"],
+                num_heads=bc["num_heads"], num_layers=layers,
+                ffn_dim=bc["ffn_dim"], max_len=bc["max_len"])
+    model = BertEncoder(**dims, dropout=0.0, dtype=dtype, device=device)
+    return load_jax_params(model, bert_tree(SEED + 50, **dims))
+
+
+def _bert_batch(bc: dict, device: torch.device, seed: int):
+    """tokens [B, T], `masked` sorted positions a row inside its length,
+    lengths [B] in bc["lengths"] (padding reaches the kernels as segment
+    ids), labels [B, masked]."""
+    rng = np.random.default_rng(seed)
+    b, t, k = bc["batch"], bc["seq"], bc["masked"]
+    lo, hi = bc["lengths"]
+    lengths = rng.integers(lo, hi + 1, b)
+    tokens = rng.integers(0, bc["vocab"], (b, t))
+    positions = np.stack([np.sort(rng.choice(n, k, replace=False))
+                          for n in lengths])
+    labels = rng.integers(0, bc["vocab"], (b, k))
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(device)
+                 for x in (tokens, positions, lengths, labels))
+
+
+def _f32_step_vs_plain(build, loss_fn, batch, flash_layers: int,
+                       pc: dict, cuda: bool) -> dict:
+    """`_step_vs_plain` at f32 on a small batch, as a phase reports it."""
+    lp, _, noise, vs = _step_vs_plain(build, loss_fn, batch, flash_layers,
+                                      SEED, pc["lr"], cuda)
+    return {"flash_layers": flash_layers, "batch": pc["check_batch"],
+            "loss_plain": lp, "kernels_vs_plain": vs["kernels"],
+            "control_dense_vs_plain": vs["dense"], "loss_bar": 1e-5,
+            "grad_bar": 1e-2, "zero_up_to_rounding": noise}
+
+
+def _check_f32_step(phase: str, rep: dict) -> None:
+    """The loss within 1e-5 relative and every gradient within
+    train_vs_plain's norm bar, for the kernels and the dense control."""
+    for name in ("kernels_vs_plain", "control_dense_vs_plain"):
+        r = rep[name]
+        check(r["loss_rel_err"] <= 1e-5,
+              f"{phase} f32 step loss {name} {r['loss']} vs plain "
+              f"{rep['loss_plain']}")
+        check(r["grad_worst_over_bar"] <= 1.0,
+              f"{phase} {name}: gradient {r['grad_worst_param']} off by "
+              f"{r['grad_worst_over_bar']} x its bar")
+
+
+def phase_bert(cfg: dict, device: torch.device, card: dict) -> dict:
+    """BERT-base MLM pretraining (paddle_tpu/benchmark/models.py:_bert's
+    widths: vocab 30522, d 768, 12 heads, 12 layers, ffn 3072, T 128,
+    19 masked positions, dropout 0) through the port's `Trainer`: a bf16
+    model over float32 parameters, Adam 1e-4, the MLM loss in float32, on
+    a batch whose lengths leave padding, which reaches the flash kernels
+    as segment ids (non-causal). One warm-up step on another batch, then
+    `steps` counted steps on one batch: finite losses that fall, and each
+    flash kernel launched once per layer per step; tokens a second count
+    the real tokens (the lengths) beside the padded count. Then one f32 step at 2
+    layers through the kernels, their plain versions and the dense
+    control: the loss within 1e-5 relative, the gradients within
+    train_vs_plain's norm bar."""
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    bc = cfg["bert"]
+    model = _bert_model(bc, bc["num_layers"], torch.bfloat16, device)
+    trainer = Trainer(model, Adam(model.parameters(), bc["lr"]), bert_loss,
+                      seed=SEED)
+    trainer.train_step(_bert_batch(bc, device, SEED + 51))
+    batch = _bert_batch(bc, device, SEED + 52)
+    start_bytes = _phase_mem(cuda)
+    _reset_launches()                               # the path's counts
+    losses, step_ms = _timed_steps(trainer, batch, bc["steps"], cuda)
+    launches = _expect_launches(FLASH_KERNELS, bc["steps"], bc["num_layers"],
+                                cuda)
+    med = float(np.median(step_ms))
+    out = {"steps": bc["steps"], "batch": bc["batch"], "seq": bc["seq"],
+           "masked": bc["masked"], "lengths": batch[2].tolist(),
+           "layers": bc["num_layers"], "dtype": "bfloat16", "lr": bc["lr"],
+           "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": float(batch[2].sum()) / med * 1e3,
+           "padded_tokens_per_s": bc["batch"] * bc["seq"] / med * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "allocated_at_start_bytes": start_bytes,
+           "kernel_launches": launches}
+    if cuda:
+        emit({"phase": "bert_profile", **step_profile(trainer, batch, med),
+              "device": card["kind"], "nvidia_smi": card["smi"]})
+    del model, trainer
+
+    small = _bert_batch(dict(bc, batch=bc["check_batch"]), device, SEED + 53)
+
+    def build():
+        m = _bert_model(bc, 2, torch.float32, device)
+        return m, [layer.ffn for layer in m.layers]
+    out["f32_step_vs_plain"] = _f32_step_vs_plain(
+        build, bert_loss, small, 2, bc, cuda)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit({"phase": "bert", **out, "device": card["kind"],
+          "nvidia_smi": card["smi"]})
+    _check_f32_step("bert", out["f32_step_vs_plain"])
+    return out
+
+
+def seq2seq_loss(module, batch, generator, training):
+    """Token-weighted cross-entropy of the teacher-forced decoder
+    (tests/test_transformer.py's recipe), in float32."""
+    src, src_lengths, trg_in, trg_out, weights = batch
+    logits = module(src, trg_in, src_lengths, generator=generator)
+    ce = softmax_with_cross_entropy(logits.float(), trg_out)
+    return (ce * weights).sum() / weights.sum(), {}
+
+
+def _seq2seq_batch(sc: dict, device: torch.device, seed: int):
+    """src [B, T] with src_lengths in sc["lengths"] (pad 0 past each),
+    trg_in / trg_out [B, T] and weights that cover each row's target
+    length (drawn in the same range)."""
+    rng = np.random.default_rng(seed)
+    b, t, v = sc["batch"], sc["seq"], sc["vocab"]
+    lo, hi = sc["lengths"]
+    src_len = rng.integers(lo, hi + 1, b)
+    trg_len = rng.integers(lo, hi + 1, b)
+    pos = np.arange(t)[None]
+    src = np.where(pos < src_len[:, None], rng.integers(3, v, (b, t)), 0)
+    trg = rng.integers(3, v, (b, t + 1))
+    weights = (pos < trg_len[:, None]).astype(np.float32)
+    arrays = (src.astype(np.int32), src_len.astype(np.int32),
+              trg[:, :-1].astype(np.int32), trg[:, 1:].astype(np.int32),
+              weights)
+    return tuple(torch.from_numpy(x).to(device) for x in arrays)
+
+
+def _seq2seq_model(sc: dict, dtype: torch.dtype,
+                   device: torch.device) -> Transformer:
+    return Transformer(sc["vocab"], sc["vocab"], model_dim=sc["model_dim"],
+                       num_heads=sc["num_heads"], num_layers=sc["num_layers"],
+                       ffn_dim=sc["ffn_dim"], dropout=0.0,
+                       max_len=sc["max_len"], dtype=dtype, device=device)
+
+
+def _greedy_dense(model, memory, src_mask, new: int, bos: int):
+    """`new` greedy tokens through decode_step over a dense cache:
+    (tokens [B, new], each step's top-2 logit gap [B, new])."""
+    b = memory.shape[0]
+    caches = model.init_cache(b, max_len=new)
+    tok = torch.full((b,), bos, dtype=torch.long, device=memory.device)
+    toks, gaps = [], []
+    for t in range(new):
+        logits, caches = model.decode_step(tok, t, memory, caches, src_mask)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        gaps.append(_top2_gap(logits))
+    return torch.stack(toks, 1), torch.stack(gaps, 1)
+
+
+def _greedy_paged(model, memory, src_mask, new: int, bos: int, bs: int):
+    """The same through decode_step_paged: each sequence's decoder k/v in
+    its own blocks of `bs` positions (tables in order from block 1)."""
+    b, dev = memory.shape[0], memory.device
+    mb = -(-new // bs)
+    tables = torch.arange(1, 1 + b * mb, dtype=torch.int32,
+                          device=dev).reshape(b, mb)
+    attn = model.dec_layers[0].self_attn
+    shape = (1 + b * mb, bs, attn.num_kv_heads, attn.head_dim)
+    pools = [(torch.zeros(shape, dtype=model.dtype, device=dev),
+              torch.zeros(shape, dtype=model.dtype, device=dev))
+             for _ in model.dec_layers]
+    tok = torch.full((b,), bos, dtype=torch.long, device=dev)
+    toks, gaps = [], []
+    for t in range(new):
+        pos = torch.full((b,), t, dtype=torch.int32, device=dev)
+        slots = tables[:, t // bs].long() * bs + t % bs
+        logits = model.decode_step_paged(tok, pos, memory, pools, tables,
+                                         pos + 1, slots, src_mask)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        gaps.append(_top2_gap(logits))
+    return torch.stack(toks, 1), torch.stack(gaps, 1)
+
+
+def phase_seq2seq(cfg: dict, device: torch.device, card: dict) -> dict:
+    """Transformer-base WMT (paddle_tpu/benchmark/models.py:_transformer's
+    widths: vocab 32000 both sides, d 512, 8 heads, 6 + 6 layers, ffn
+    2048, T 256, max_len 257, dropout 0) through the port's `Trainer`:
+    bf16 over float32 parameters, Adam 1e-4, source lengths that leave
+    padding. One warm-up step on another batch, then `steps` steps on one
+    batch: finite losses that fall; each flash kernel launched once per
+    encoder layer (segment ids from src_lengths) and once per decoder
+    self-attention layer (causal) a step, and never for the
+    cross-attention, which takes the dense src_mask as JAX's dispatch
+    does. Then, with the trained weights in f32, on 4 sources:
+    - `beam_search` over `decode_step` (K 4, `decode` tokens, length
+      penalty 0.6) with early_exit off and on: equal results, sorted
+      finite scores, lengths within max_len;
+    - `decode` greedy tokens through `decode_step` and through
+      `decode_step_paged` (block 16): the streams equal up to the first
+      position where either path's top-2 logits lie within 1e-4 (such
+      splits are counted), and the paged-decode kernel launched once
+      per decoder layer per token.
+    Then one f32 step at 2 + 2 layers through the kernels, their plain
+    versions and the dense control, held as `bert`'s. Throughput counts
+    real tokens (target weights, source lengths) beside the padded
+    count."""
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sc = cfg["seq2seq"]
+    layers = sc["num_layers"]
+    tree = transformer_tree(SEED + 60, sc["vocab"], sc["vocab"],
+                            sc["model_dim"], sc["num_heads"], layers,
+                            sc["ffn_dim"])
+    model = load_jax_params(_seq2seq_model(sc, torch.bfloat16, device), tree)
+    trainer = Trainer(model, Adam(model.parameters(), sc["lr"]),
+                      seq2seq_loss, seed=SEED)
+    trainer.train_step(_seq2seq_batch(sc, device, SEED + 61))
+    batch = _seq2seq_batch(sc, device, SEED + 62)
+    start_bytes = _phase_mem(cuda)
+    _reset_launches()                               # the path's counts
+    losses, step_ms = _timed_steps(trainer, batch, sc["steps"], cuda)
+    # 6 encoder + 6 decoder self-attention layers; the cross-attention
+    # under the dense src_mask launches none
+    launches = _expect_launches(FLASH_KERNELS, sc["steps"], 2 * layers, cuda)
+    med = float(np.median(step_ms))
+    out = {"steps": sc["steps"], "batch": sc["batch"], "seq": sc["seq"],
+           "layers": f"{layers} + {layers}", "dtype": "bfloat16",
+           "lr": sc["lr"], "src_lengths": batch[1].tolist(),
+           "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "target_tokens_per_s": float(batch[4].sum()) / med * 1e3,
+           "src_tokens_per_s": float(batch[1].sum()) / med * 1e3,
+           "padded_tokens_per_s": sc["batch"] * sc["seq"] / med * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "allocated_at_start_bytes": start_bytes,
+           "kernel_launches": launches}
+    if cuda:
+        emit({"phase": "seq2seq_profile",
+              **step_profile(trainer, batch, med), "device": card["kind"],
+              "nvidia_smi": card["smi"]})
+
+    trained = to_jax_params(model)
+    del model, trainer
+    f32 = load_jax_params(_seq2seq_model(sc, torch.float32, device), trained)
+    n, k, new, bos, eos = sc["sources"], sc["beam"], sc["decode"], 1, 2
+    src, src_len = batch[0][:n], batch[1][:n]
+    with torch.inference_mode():
+        memory, src_mask = f32.encode(src, src_len)
+        memory_t, mask_t = tile_beams(memory, k), tile_beams(src_mask, k)
+
+        def decode_fn(tokens, pos, caches):
+            return f32.decode_step(tokens, pos, memory_t, caches, mask_t)
+        beams, beam_ms = {}, {}
+        for early in (False, True):
+            sync()
+            t0 = time.perf_counter()
+            beams[early] = beam_search(
+                decode_fn, f32.init_cache(n * k, max_len=new), batch=n,
+                beam_size=k, max_len=new, bos_id=bos, eos_id=eos,
+                vocab_size=sc["vocab"], length_penalty=0.6,
+                early_exit=early)
+            sync()
+            beam_ms[str(early)] = (time.perf_counter() - t0) * 1e3
+        sync()
+        t0 = time.perf_counter()
+        dense, dense_gaps = _greedy_dense(f32, memory, src_mask, new, bos)
+        sync()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        _reset_launches()                           # kernel 3's count
+        t0 = time.perf_counter()
+        paged, paged_gaps = _greedy_paged(f32, memory, src_mask, new, bos,
+                                          sc["block_size"])
+        sync()
+        paged_ms = (time.perf_counter() - t0) * 1e3
+    paged_launches = _expect_launches("paged_attention", new, layers, cuda)
+    full, early = beams[False], beams[True]
+    same = all(torch.equal(a, b) for a, b in zip(full, early))
+    scores = full.scores.float()
+    rows = [_stream_split(dense[i].tolist(), paged[i].tolist(),
+                          dense_gaps[i].tolist(), paged_gaps[i].tolist(),
+                          1e-4) for i in range(n)]
+    out.update({
+        "decode_dtype": "float32", "sources": n, "src_lengths_decoded":
+        src_len.tolist(), "beam": {
+            "k": k, "max_len": new, "length_penalty": 0.6,
+            "early_exit_equal": same, "scores": scores.tolist(),
+            "lengths": full.lengths.tolist(), "ms": beam_ms},
+        "greedy": {"tokens": new, "block_size": sc["block_size"],
+                   "dense_ms": dense_ms, "paged_ms": paged_ms,
+                   "rows": rows,
+                   "splits": [r for r in rows if r["agreed"] < new]},
+        "paged_kernel_launches": paged_launches})
+    del f32
+    small = _seq2seq_batch(dict(sc, batch=sc["check_batch"]), device,
+                           SEED + 63)
+    small_tree = transformer_tree(SEED + 64, sc["vocab"], sc["vocab"],
+                                  sc["model_dim"], sc["num_heads"], 2,
+                                  sc["ffn_dim"])
+
+    def build():
+        m = load_jax_params(_seq2seq_model(dict(sc, num_layers=2),
+                                           torch.float32, device), small_tree)
+        return m, [layer.ffn for layer in (*m.enc_layers, *m.dec_layers)]
+    # 2 encoder + 2 decoder self-attention layers through the kernels
+    out["f32_step_vs_plain"] = _f32_step_vs_plain(
+        build, seq2seq_loss, small, 4, sc, cuda)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit({"phase": "seq2seq", **out, "device": card["kind"],
+          "nvidia_smi": card["smi"]})
+    _check_f32_step("seq2seq", out["f32_step_vs_plain"])
+    check(same, "beam_search with early_exit differs from the full run")
+    check(bool(torch.isfinite(scores).all()), "non-finite beam scores")
+    check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          "beam scores not sorted")
+    check(int(full.lengths.max()) <= new, "a beam longer than max_len")
+    check(all(r["ok"] for r in rows),
+          f"paged greedy stream left the dense one away from a near tie: "
+          f"{rows}")
+    return out
+
+
 # -- configurations -------------------------------------------------------
 
 def full_config() -> dict:
@@ -3485,7 +3895,21 @@ def full_config() -> dict:
         # pulls the prefix); a 1 GB host tier on each replica
         serve_http=dict(prefix=256, suffix=(16, 1200), short=(20, 60),
                         requests=16, new=32, gone_new=256, xfer_new=160,
-                        tier_bytes=1 << 30, latency_pairs=16))
+                        tier_bytes=1 << 30, latency_pairs=16),
+        # bert: BERT-base MLM at paddle_tpu/benchmark/models.py:_bert's
+        # widths and batch; 8 steps; lengths 64-128 leave padding; the f32
+        # check at 2 layers on 8 rows
+        bert=dict(vocab=30522, model_dim=768, num_heads=12, num_layers=12,
+                  ffn_dim=3072, seq=128, max_len=128, masked=19, batch=32,
+                  lengths=(64, 128), steps=8, lr=1e-4, check_batch=8),
+        # seq2seq: Transformer-base WMT at models.py:_transformer's widths,
+        # batch 16, 6 steps, source lengths 128-256; decoding on 4 sources,
+        # beam 4 over 32 tokens, greedy 32 tokens, block 16; the f32 check
+        # at 2 + 2 layers on 4 rows
+        seq2seq=dict(vocab=32000, model_dim=512, num_heads=8, num_layers=6,
+                     ffn_dim=2048, seq=256, max_len=257, batch=16,
+                     lengths=(128, 256), steps=6, lr=1e-4, sources=4,
+                     beam=4, decode=32, block_size=16, check_batch=4))
 
 
 def tiny_config() -> dict:
@@ -3519,7 +3943,14 @@ def tiny_config() -> dict:
         tp=dict(size=2),
         serve_http=dict(prefix=32, suffix=(4, 60), short=(5, 10),
                         requests=8, new=6, gone_new=40, xfer_new=30,
-                        tier_bytes=16 << 20, latency_pairs=2))
+                        tier_bytes=16 << 20, latency_pairs=2),
+        bert=dict(vocab=97, model_dim=64, num_heads=8, num_layers=2,
+                  ffn_dim=128, seq=32, max_len=32, masked=4, batch=4,
+                  lengths=(16, 32), steps=8, lr=1e-3, check_batch=2),
+        seq2seq=dict(vocab=97, model_dim=64, num_heads=8, num_layers=2,
+                     ffn_dim=128, seq=24, max_len=25, batch=4,
+                     lengths=(12, 24), steps=6, lr=1e-3, sources=4,
+                     beam=4, decode=8, block_size=4, check_batch=2))
 
 
 @contextlib.contextmanager
@@ -3584,6 +4015,8 @@ def main(argv=None) -> int:
         phase_resume(cfg, tree, device, card)
         phase_resilient(cfg, tree, device, card)
         phase_optimizers(cfg, device)
+        bert = phase_bert(cfg, device, card)
+        seq2seq = phase_seq2seq(cfg, device, card)
 
         rows = []
         for name, (source, replaces, _) in KERNEL_ROWS.items():
@@ -3612,6 +4045,13 @@ def main(argv=None) -> int:
                 rows[-1]["launches_generate"] = {
                     dt: r["kernel_launches"][name]
                     for dt, r in generate.items()}
+            if name in FLASH_KERNELS:
+                rows[-1]["launches_bert"] = bert["kernel_launches"][name]
+                rows[-1]["launches_seq2seq"] = \
+                    seq2seq["kernel_launches"][name]
+            if name == "paged_attention":
+                rows[-1]["launches_seq2seq"] = \
+                    seq2seq["paged_kernel_launches"][name]
         emit({"kernels": rows})
         if cuda:
             emit({"ok": True, "device": {"platform": "gpu",

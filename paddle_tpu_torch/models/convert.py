@@ -1,4 +1,4 @@
-"""Carry a CausalLM's weights between the JAX package and the port.
+"""Carry a model's weights between the JAX package and the port.
 
 `load_jax_params(model, tree)` takes the JAX `variables` as nested
 dicts of numpy arrays (what `jax.device_get(variables)` gives; no JAX
@@ -57,7 +57,12 @@ def jax_path(name: str) -> str:
 def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a JAX `variables` tree (numpy or tensor leaves) into
     `model`'s parameters in place; returns `model`. Parameters are stored
-    float32, as JAX's param_dtype keeps them."""
+    float32, as JAX's param_dtype keeps them. A model with a
+    `check_jax_tree(tree)` method may refuse a tree first
+    (`BertEncoder` does)."""
+    check = getattr(model, "check_jax_tree", None)
+    if check is not None:       # a model's own refusal comes first
+        check(tree)
     others = {k for k, v in tree.items() if k != "params" and v}
     if others:
         raise ValueError(f"collections other than params: {sorted(others)}")

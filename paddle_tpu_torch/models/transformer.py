@@ -1,12 +1,18 @@
-"""Decoder-only CausalLM (port of paddle_tpu/models/transformer.py).
+"""The transformer models (port of paddle_tpu/models/transformer.py):
+the decoder-only `CausalLM`, the encoder-decoder `Transformer` and the
+`BertEncoder`.
 
 Module and parameter names mirror the JAX module tree so a JAX
-`variables` tree loads by path (models/convert.py): `embed`,
-`blocks.{i}` (JAX `blocks_{i}`) with `ln1`, `attn` (`q_proj`/`k_proj`/
-`v_proj` or head-major fused `qkv`, then `out_proj`), `ln2`, `ffn`
-(`fc1`, `fc2`), then `ln_f` and, when untied, `head`.
+`variables` tree loads by path (models/convert.py): for the CausalLM
+`embed`, `blocks.{i}` (JAX `blocks_{i}`) with `ln1`, `attn` (`q_proj`/
+`k_proj`/`v_proj` or head-major fused `qkv`, then `out_proj`), `ln2`,
+`ffn` (`fc1`, `fc2`), then `ln_f` and, when untied, `head`. JAX makes a
+parameter on its first use, so a fused attention holds only what its
+role uses: `qkv` for self-attention, `q_proj` and the packed `kv` for
+cross-attention; the port's `MultiHeadAttention` is told its role when
+it is built (`cross=`).
 
-Four paths:
+The CausalLM's four paths:
 
 - `CausalLM.forward` — the dense training forward (logits, or the
   pre-head hidden states for the fused cross-entropy), with
@@ -52,10 +58,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from paddle_tpu_torch.core.module import ModuleError
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.kernels import paged_attention as paged
 from paddle_tpu_torch.kernels.attention import mha
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from paddle_tpu_torch.ops.sequence import sequence_mask
 from paddle_tpu_torch.utils.rng import fold_in
 
 Pools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -78,10 +86,11 @@ def init_kv_caches(layers, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None) -> List[Cache]:
     """Zeroed per-layer KV caches for the dense incremental decode
     (transformer.py:47): one {"k", "v"} [B, max_len, Hkv, hd] dict per
-    layer of `layers` (CausalBlocks), on the layers' device. The caches
-    take the model's compute dtype (a bf16 model decodes from bf16
-    caches) unless `dtype` overrides it."""
-    attn = layers[0].attn
+    layer of `layers` (CausalBlocks, or DecoderLayers' self-attention),
+    on the layers' device. The caches take the model's compute dtype (a
+    bf16 model decodes from bf16 caches) unless `dtype` overrides it."""
+    first = layers[0]
+    attn = getattr(first, "self_attn", None) or first.attn
     dev = attn.out_proj.weight.device
     shape = (batch, max_len, attn.num_kv_heads, attn.head_dim)
     dt = dtype if dtype is not None else attn.dtype
@@ -91,17 +100,19 @@ def init_kv_caches(layers, batch: int, max_len: int,
 
 
 class MultiHeadAttention(nn.Module):
-    """Causal self-attention; names match the JAX module.
+    """Self- or cross-attention; names match the JAX module.
 
     num_kv_heads < num_heads is grouped-query attention (k/v project to
-    fewer heads). fused_qkv packs the projections into one [D, 3D]
-    matmul, HEAD-MAJOR (columns ordered [head, role, head_dim], role =
-    q/k/v), and requires equal head counts."""
+    fewer heads). fused_qkv packs the projections HEAD-MAJOR (columns
+    ordered [head, role, head_dim]) and requires equal head counts: a
+    self-attention holds one [D, 3D] `qkv` (role q/k/v), a
+    cross-attention (`cross=True`) `q_proj` and one [D, 2D] `kv` (role
+    k/v), which is what JAX makes for each role."""
 
     def __init__(self, model_dim: int, num_heads: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32, fused_qkv: bool = False,
                  num_kv_heads: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, cross: bool = False):
         super().__init__()
         if model_dim % num_heads != 0:
             raise ValueError(
@@ -121,7 +132,12 @@ class MultiHeadAttention(nn.Module):
         self.fused_qkv = fused_qkv
         self.dtype = dtype
         kv_dim = self.num_kv_heads * self.head_dim
-        if fused_qkv:
+        if fused_qkv and cross:
+            self.q_proj = Linear(model_dim, model_dim, dtype=dtype,
+                                 device=device)
+            self.kv = Linear(model_dim, 2 * model_dim, dtype=dtype,
+                             device=device)
+        elif fused_qkv:
             self.qkv = Linear(model_dim, 3 * model_dim, dtype=dtype,
                               device=device)
         else:
@@ -132,6 +148,20 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(model_dim, model_dim, dtype=dtype,
                                device=device)
         self.drop = Dropout(dropout)
+
+    def _project_cross(self, x: torch.Tensor, kv: torch.Tensor):
+        """q [..., Tq, H, hd] from x, k/v [..., Tk, Hkv, hd] from kv."""
+        qh = self.q_proj(x).reshape(*x.shape[:-1], self.num_heads,
+                                    self.head_dim)
+        lead = kv.shape[:-1]
+        if self.fused_qkv:
+            p = self.kv(kv).reshape(*lead, self.num_heads, 2, self.head_dim)
+            return qh, p[..., 0, :], p[..., 1, :]
+        return (qh,
+                self.k_proj(kv).reshape(*lead, self.num_kv_heads,
+                                        self.head_dim),
+                self.v_proj(kv).reshape(*lead, self.num_kv_heads,
+                                        self.head_dim))
 
     def _project(self, x: torch.Tensor, tp=None):
         """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd]; under `tp`
@@ -164,13 +194,15 @@ class MultiHeadAttention(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 mask: Optional[torch.Tensor] = None, causal: bool = True,
                 cache: Optional[Cache] = None, decode_pos: int = 0,
-                prefill: bool = False):
-        """Self-attention (transformer.py:129-184): x [B, T, D] ->
-        [B, T, D]. segment_ids [B, T] keeps attention inside each packed
-        document; `mask` (broadcastable to [B, H, T, Tk], True = attend)
-        is an explicit pattern, which takes `mha`'s dense path; in
-        training, attention dropout at this layer's rate draws from
-        `generator`.
+                prefill: bool = False, kv: Optional[torch.Tensor] = None):
+        """Attention (transformer.py:129-184): x [B, T, D] -> [B, T, D],
+        over x itself, or with `kv` [B, Tk, D] cross-attention over kv
+        (a `cross=True` module). segment_ids [B, T] keeps attention
+        inside each packed document; `mask` (broadcastable to
+        [B, H, T, Tk], True = attend) is an explicit pattern, which takes
+        `mha`'s dense path; in training, attention dropout at this
+        layer's rate draws from `generator`. `causal` defaults to True
+        here, where JAX's default is False; every layer passes it.
 
         With `cache` ({"k", "v"} [B, Tmax, Hkv, hd]) this call's k/v are
         written at `decode_pos` into a NEW cache (the given one is left
@@ -181,7 +213,8 @@ class MultiHeadAttention(nn.Module):
         is the flash forward kernel); otherwise the query attends over
         the whole new cache under `mask`."""
         b, t = x.shape[:2]
-        qh, kh, vh = self._project(x)
+        qh, kh, vh = (self._project(x) if kv is None
+                      else self._project_cross(x, kv))
         if cache is not None:
             tmax = cache["k"].shape[1]
             start = min(max(int(decode_pos), 0), tmax - t)
@@ -657,3 +690,309 @@ class CausalLM(nn.Module):
             x = blk.decode_paged(x, k_pool, v_pool, block_tables,
                                  context_lens, slots)
         return self._head(self.ln_f(x))[:, 0]
+
+
+# -- the encoder-decoder Transformer and BERT (transformer.py:359-533, 901) --
+
+class EncoderLayer(nn.Module):
+    """Pre-LN bidirectional self-attention + FFN block."""
+
+    def __init__(self, model_dim: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 fused_qkv: bool = False, device: DeviceLike = None):
+        super().__init__()
+        self.attn = MultiHeadAttention(model_dim, num_heads, dropout, dtype,
+                                       fused_qkv=fused_qkv, device=device)
+        self.ffn = FeedForward(model_dim, ffn_dim, dropout, dtype,
+                               device=device)
+        self.ln1 = LayerNorm(model_dim, device=device)
+        self.ln2 = LayerNorm(model_dim, device=device)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                segment_ids=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.attn(self.ln1(x), mask=mask, causal=False,
+                      segment_ids=segment_ids, generator=generator)
+        x = x + self.drop(h, generator)
+        return x + self.drop(self.ffn(self.ln2(x), generator), generator)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-LN causal self-attention, cross-attention over the encoder's
+    memory, then the FFN."""
+
+    def __init__(self, model_dim: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 fused_qkv: bool = False, device: DeviceLike = None):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(model_dim, num_heads, dropout,
+                                            dtype, fused_qkv=fused_qkv,
+                                            device=device)
+        self.cross_attn = MultiHeadAttention(model_dim, num_heads, dropout,
+                                             dtype, fused_qkv=fused_qkv,
+                                             device=device, cross=True)
+        self.ffn = FeedForward(model_dim, ffn_dim, dropout, dtype,
+                               device=device)
+        self.ln1 = LayerNorm(model_dim, device=device)
+        self.ln2 = LayerNorm(model_dim, device=device)
+        self.ln3 = LayerNorm(model_dim, device=device)
+        self.drop = Dropout(dropout)
+
+    def _cross_ffn(self, x: torch.Tensor, memory: torch.Tensor,
+                   cross_mask: Optional[torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        h = self.cross_attn(self.ln2(x), kv=memory, mask=cross_mask,
+                            causal=False, generator=generator)
+        x = x + self.drop(h, generator)
+        return x + self.drop(self.ffn(self.ln3(x), generator), generator)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                self_mask: Optional[torch.Tensor] = None,
+                self_causal: bool = False,
+                cross_mask: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None, decode_pos: int = 0,
+                generator: Optional[torch.Generator] = None):
+        """x [B, T, D] -> (x, new cache or None). With `cache` this
+        call's k/v are written at `decode_pos` and the queries attend
+        over the whole new cache under `self_mask` (transformer.py:392)."""
+        h = self.self_attn(self.ln1(x), mask=self_mask, causal=self_causal,
+                           cache=cache, decode_pos=decode_pos,
+                           generator=generator)
+        new_cache = None
+        if cache is not None:
+            h, new_cache = h
+        x = x + self.drop(h, generator)
+        return self._cross_ffn(x, memory, cross_mask, generator), new_cache
+
+    def decode_paged(self, x: torch.Tensor, memory: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     block_tables: torch.Tensor, context_lens: torch.Tensor,
+                     slots: torch.Tensor,
+                     cross_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Paged self-attention decode step (the `paged_attention`
+        kernel; the pools are written in place) and dense
+        cross-attention over `memory` (transformer.py:407)."""
+        h = self.self_attn.decode_paged(self.ln1(x), k_pool, v_pool,
+                                        block_tables, context_lens, slots)
+        return self._cross_ffn(x + self.drop(h), memory, cross_mask)
+
+
+class Transformer(nn.Module):
+    """Encoder-decoder Transformer-base (d 512, h 8, L 6, ffn 2048).
+
+    tie_embeddings=True shares one table between source and target
+    (`src_embed`, registered first, so `named_parameters` yields it
+    once under that name, the path JAX gives it). `device` defaults to
+    the CUDA card. The model starts in eval mode."""
+
+    def __init__(self, src_vocab: int, trg_vocab: int, model_dim: int = 512,
+                 num_heads: int = 8, num_layers: int = 6, ffn_dim: int = 2048,
+                 dropout: float = 0.1, max_len: int = 1024,
+                 tie_embeddings: bool = False,
+                 dtype: torch.dtype = torch.float32, fused_qkv: bool = False,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.device = device
+        self.model_dim = model_dim
+        self.max_len = max_len
+        self.dtype = dtype
+        self.tie_embeddings = tie_embeddings
+        self.src_embed = Embedding(src_vocab, model_dim, dtype=dtype,
+                                   device=device)
+        self.trg_embed = (self.src_embed if tie_embeddings else
+                          Embedding(trg_vocab, model_dim, dtype=dtype,
+                                    device=device))
+        self.enc_layers = nn.ModuleList(
+            EncoderLayer(model_dim, num_heads, ffn_dim, dropout, dtype,
+                         fused_qkv, device=device)
+            for _ in range(num_layers))
+        self.dec_layers = nn.ModuleList(
+            DecoderLayer(model_dim, num_heads, ffn_dim, dropout, dtype,
+                         fused_qkv, device=device)
+            for _ in range(num_layers))
+        self.enc_ln = LayerNorm(model_dim, device=device)
+        self.dec_ln = LayerNorm(model_dim, device=device)
+        self.head = Linear(model_dim, trg_vocab, dtype=dtype, device=device)
+        self.drop = Dropout(dropout)
+        self.register_buffer(
+            "pe", sinusoid_position_encoding(max_len, model_dim, device),
+            persistent=False)
+        self.eval()
+
+    def _pe(self, t: int) -> torch.Tensor:
+        """The encoding's first t rows (JAX computes it at length t, which
+        may pass max_len in the parallel passes)."""
+        if t <= self.max_len:
+            return self.pe[:t]
+        return sinusoid_position_encoding(t, self.model_dim, self.pe.device)
+
+    def _embed(self, table: Embedding, tokens: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        t = tokens.shape[1]
+        x = table(tokens.long()) * math.sqrt(self.model_dim)
+        return self.drop(x + self._pe(t).to(x.dtype), generator)
+
+    def encode(self, src_tokens: torch.Tensor,
+               src_lengths: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(memory [B, Ts, D], src_mask [B, 1, 1, Ts] or None). With
+        `src_lengths` the encoder's self-attention takes the padding as
+        segment ids (real 1, pad 0: the flash kernels mask it
+        block-wise) and the cross-attention gets the dense mask."""
+        t = src_tokens.shape[1]
+        x = self._embed(self.src_embed, src_tokens, generator)
+        mask = segs = None
+        if src_lengths is not None:
+            valid = sequence_mask(src_lengths.to(x.device), t)
+            mask = valid[:, None, None, :]
+            segs = valid.to(torch.int32)
+        for layer in self.enc_layers:
+            x = layer(x, segment_ids=segs, generator=generator)
+        return self.enc_ln(x), mask
+
+    def decode_train(self, trg_tokens: torch.Tensor, memory: torch.Tensor,
+                     src_mask: Optional[torch.Tensor] = None,
+                     return_hidden: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """Teacher-forced decoder: logits [B, Tt, V], or with
+        `return_hidden` the pre-head hidden states [B, Tt, D] (for the
+        fused cross-entropy over `head`'s weights)."""
+        x = self._embed(self.trg_embed, trg_tokens, generator)
+        for layer in self.dec_layers:
+            x, _ = layer(x, memory, self_causal=True, cross_mask=src_mask,
+                         generator=generator)
+        x = self.dec_ln(x)
+        return x if return_hidden else self.head(x)
+
+    def forward(self, src_tokens: torch.Tensor, trg_tokens: torch.Tensor,
+                src_lengths: Optional[torch.Tensor] = None,
+                return_hidden: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        memory, src_mask = self.encode(src_tokens, src_lengths, generator)
+        return self.decode_train(trg_tokens, memory, src_mask,
+                                 return_hidden=return_hidden,
+                                 generator=generator)
+
+    # -- incremental decode (for beam search) ------------------------------
+    def init_cache(self, batch: int,
+                   max_len: Optional[int] = None) -> List[Cache]:
+        return init_kv_caches(self.dec_layers, batch, max_len or self.max_len)
+
+    def decode_step(self, token: torch.Tensor, pos: int,
+                    memory: torch.Tensor, caches: Sequence[Cache],
+                    src_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, List[Cache]]:
+        """One step: token [B] ids at position `pos` -> (logits [B, V],
+        new caches). The query attends over the cache under the mask
+        arange(Tmax) <= pos (`mha`'s dense path). The encoding row and
+        the cache write are clamped to their ranges, as JAX's
+        dynamic_slice and dynamic_update_slice clamp them."""
+        pos = int(pos)
+        x = self.trg_embed(token.long()[:, None]) * math.sqrt(self.model_dim)
+        x = x + self.pe[min(max(pos, 0), self.max_len - 1)].to(x.dtype)
+        tmax = caches[0]["k"].shape[1]
+        smask = (torch.arange(tmax, device=x.device) <= pos)[None, None,
+                                                              None]
+        new_caches = []
+        for layer, cache in zip(self.dec_layers, caches):
+            x, nc = layer(x, memory, self_mask=smask, cross_mask=src_mask,
+                          cache=cache, decode_pos=pos)
+            new_caches.append(nc)
+        return self.head(self.dec_ln(x))[:, 0], new_caches
+
+    def decode_step_paged(self, token: torch.Tensor, positions: torch.Tensor,
+                          memory: torch.Tensor, pools: Pools,
+                          block_tables: torch.Tensor,
+                          context_lens: torch.Tensor, slots: torch.Tensor,
+                          src_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """Continuous-batching decode (transformer.py:509): tokens [B] at
+        per-sequence positions [B], the decoder's self-attention k/v in
+        per-layer paged pools (written in place, where JAX returns new
+        pools; one `paged_attention` call a layer), dense
+        cross-attention over `memory`. Returns logits [B, V]. Positions
+        index the encoding as JAX's gather does: a negative one counts
+        from the end, and the result is clamped to [0, max_len)."""
+        x = self.trg_embed(token.long()[:, None]) * math.sqrt(self.model_dim)
+        p = positions.long()
+        p = torch.where(p < 0, p + self.max_len, p).clamp(0, self.max_len - 1)
+        x = x + self.pe[p].to(x.dtype)[:, None]
+        slots = slots.long()
+        for layer, (k_pool, v_pool) in zip(self.dec_layers, pools):
+            x = layer.decode_paged(x, memory, k_pool, v_pool, block_tables,
+                                   context_lens, slots, cross_mask=src_mask)
+        return self.head(self.dec_ln(x))[:, 0]
+
+
+class BertEncoder(nn.Module):
+    """BERT-style encoder for masked-LM pretraining (transformer.py:901):
+    learned positions, the Transformer's pre-LN EncoderLayer stack, and
+    an MLM head tied to the token table (`embed.attend`). `device`
+    defaults to the CUDA card. The model starts in eval mode."""
+
+    def __init__(self, vocab: int = 30522, model_dim: int = 768,
+                 num_heads: int = 12, num_layers: int = 12,
+                 ffn_dim: int = 3072, max_len: int = 512,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 fused_qkv: bool = False, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.device = device
+        self.model_dim = model_dim
+        self.dtype = dtype
+        self.embed = Embedding(vocab, model_dim, dtype=dtype, device=device)
+        self.pos_embed = Embedding(max_len, model_dim, dtype=dtype,
+                                   device=device)
+        self.layers = nn.ModuleList(
+            EncoderLayer(model_dim, num_heads, ffn_dim, dropout, dtype,
+                         fused_qkv, device=device)
+            for _ in range(num_layers))
+        self.ln = LayerNorm(model_dim, device=device)
+        self.drop = Dropout(dropout)
+        self.eval()
+
+    @staticmethod
+    def check_jax_tree(tree) -> None:
+        """Refuse a tree from before JAX's Embedding.attend scoping fix:
+        its root-level `weight` is the untied MLM head it trained, so
+        loading it as tied would change the MLM logits
+        (transformer.py:952-965)."""
+        if "weight" in tree.get("params", {}):
+            raise ModuleError(
+                "checkpoint has a root-level 'weight' param: it predates "
+                "the Embedding.attend scoping fix and its MLM head was "
+                "NOT tied. Migrate by renaming it into a dedicated head "
+                "or folding it into params['embed']['weight'].")
+
+    def forward(self, tokens: torch.Tensor,
+                mask_positions: Optional[torch.Tensor] = None,
+                lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Hidden states [B, T, D]; with `mask_positions` [B, K] the
+        tied-head MLM vocab logits [B, K, V] at those positions instead.
+        `lengths` [B] turns the padding into segment ids (real 1, pad
+        0), which keeps padded batches on the flash kernels: pad rows
+        attend pad rows, and their outputs are never read."""
+        t = tokens.shape[1]
+        pos = torch.arange(t, device=tokens.device)
+        x = self.embed(tokens.long()) + self.pos_embed(pos)[None]
+        x = self.drop(x, generator)
+        segs = None
+        if lengths is not None:
+            segs = sequence_mask(lengths.to(x.device), t).to(torch.int32)
+        for layer in self.layers:
+            x = layer(x, segment_ids=segs, generator=generator)
+        hidden = self.ln(x)
+        if mask_positions is None:
+            return hidden
+        picked = torch.take_along_dim(
+            hidden, mask_positions.long().to(hidden.device)[..., None], dim=1)
+        return self.embed.attend(picked)

@@ -1,8 +1,10 @@
-"""Operands and weights made from a seed with numpy, shared by the port's
-tests and chip_smoke.py (counterpart of paddle_tpu/testing/).
+"""Test harnesses of the port (counterpart of paddle_tpu/testing/).
 
-Everything here returns numpy arrays, so one set of inputs can go
-through the JAX package and through the port alike.
+- `op_test`: the numeric-gradient harness (`check_grad`,
+  `check_output`, `numeric_grad`).
+- Operands and weights made from a seed with numpy, shared by the
+  port's tests and chip_smoke.py. They are numpy arrays, so one set of
+  inputs can go through the JAX package and through the port alike.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from paddle_tpu_torch.testing.op_test import (check_grad, check_output,
+                                             numeric_grad)
 
 
 def ragged_case(rows: Sequence[Tuple[int, int]], h: int, hkv: int, d: int,
@@ -169,50 +174,123 @@ def decode_as_ragged(case: Dict[str, np.ndarray],
             "tile_offs": np.zeros((b,), np.int32)}
 
 
+class _Draws:
+    """The JAX initializers' distributions from one numpy generator:
+    glorot-uniform Linear weights [in, out], N(0, embed_std) tables,
+    and zero biases with unit LayerNorm scales unless `random_norms`,
+    which draws them too so a parity test exercises every parameter."""
+
+    def __init__(self, seed: int, embed_std: float = 0.02,
+                 random_norms: bool = False):
+        self.rng = np.random.default_rng(seed)
+        self.embed_std = embed_std
+        self.random_norms = random_norms
+
+    def vec(self, n: int, base: float) -> np.ndarray:
+        if self.random_norms:
+            return (base + 0.1 * self.rng.standard_normal(n)).astype(
+                np.float32)
+        return np.full((n,), base, np.float32)
+
+    def linear(self, n_in: int, n_out: int) -> Dict[str, np.ndarray]:
+        lim = np.sqrt(6.0 / (n_in + n_out))
+        return {"weight": self.rng.uniform(-lim, lim, (n_in, n_out)).astype(
+            np.float32), "bias": self.vec(n_out, 0.0)}
+
+    def ln(self, d: int) -> Dict[str, np.ndarray]:
+        return {"scale": self.vec(d, 1.0), "bias": self.vec(d, 0.0)}
+
+    def table(self, n: int, d: int) -> Dict[str, np.ndarray]:
+        return {"weight": (self.embed_std * self.rng.standard_normal(
+            (n, d))).astype(np.float32)}
+
+    def attn(self, d: int, kv_dim: int, fused_qkv: bool,
+             cross: bool = False) -> Dict:
+        """One MultiHeadAttention's parameters as JAX makes them on first
+        use: fused self-attention holds `qkv`, fused cross-attention
+        `q_proj` and the head-major packed `kv`, unfused both q/k/v."""
+        if fused_qkv and cross:
+            p = {"q_proj": self.linear(d, d), "kv": self.linear(d, 2 * d)}
+        elif fused_qkv:
+            p = {"qkv": self.linear(d, 3 * d)}
+        else:
+            p = {"q_proj": self.linear(d, d), "k_proj": self.linear(d, kv_dim),
+                 "v_proj": self.linear(d, kv_dim)}
+        p["out_proj"] = self.linear(d, d)
+        return p
+
+    def ffn(self, d: int, ffn_dim: int) -> Dict:
+        return {"fc1": self.linear(d, ffn_dim), "fc2": self.linear(ffn_dim, d)}
+
+
 def causal_lm_tree(seed: int, vocab: int, model_dim: int, num_heads: int,
                    num_layers: int, ffn_dim: int,
                    num_kv_heads: Optional[int] = None,
                    fused_qkv: bool = False, tie_embeddings: bool = True,
                    embed_std: float = 0.02, random_norms: bool = False
                    ) -> Dict:
-    """A JAX-layout CausalLM `variables` tree of random weights:
-    glorot-uniform Linear weights [in, out], N(0, embed_std)
-    embeddings, and zero biases with unit LayerNorm scales (the JAX
-    initializers' distributions) unless `random_norms`, which draws
-    them too so a parity test exercises every parameter."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-
-    def vec(n, base):
-        if random_norms:
-            return (base + 0.1 * rng.standard_normal(n)).astype(f32)
-        return np.full((n,), base, f32)
-
-    def linear(n_in, n_out):
-        lim = np.sqrt(6.0 / (n_in + n_out))
-        return {"weight": rng.uniform(-lim, lim, (n_in, n_out)).astype(f32),
-                "bias": vec(n_out, 0.0)}
-
-    def ln():
-        return {"scale": vec(model_dim, 1.0), "bias": vec(model_dim, 0.0)}
-
+    """A JAX-layout CausalLM `variables` tree of random weights (the
+    distributions of `_Draws`)."""
+    g = _Draws(seed, embed_std, random_norms)
     hkv = num_kv_heads or num_heads
     kv_dim = hkv * (model_dim // num_heads)
-    params = {"embed": {"weight": (embed_std * rng.standard_normal(
-        (vocab, model_dim))).astype(f32)}}
+    params = {"embed": g.table(vocab, model_dim)}
     for i in range(num_layers):
-        attn = ({"qkv": linear(model_dim, 3 * model_dim)} if fused_qkv else
-                {"q_proj": linear(model_dim, model_dim),
-                 "k_proj": linear(model_dim, kv_dim),
-                 "v_proj": linear(model_dim, kv_dim)})
-        attn["out_proj"] = linear(model_dim, model_dim)
+        attn = g.attn(model_dim, kv_dim, fused_qkv)   # drawn before the LNs
         params[f"blocks_{i}"] = {
-            "ln1": ln(), "ln2": ln(), "attn": attn,
-            "ffn": {"fc1": linear(model_dim, ffn_dim),
-                    "fc2": linear(ffn_dim, model_dim)}}
-    params["ln_f"] = ln()
+            "ln1": g.ln(model_dim), "ln2": g.ln(model_dim), "attn": attn,
+            "ffn": g.ffn(model_dim, ffn_dim)}
+    params["ln_f"] = g.ln(model_dim)
     if not tie_embeddings:
-        params["head"] = linear(model_dim, vocab)
+        params["head"] = g.linear(model_dim, vocab)
+    return {"params": params}
+
+
+def transformer_tree(seed: int, src_vocab: int, trg_vocab: int,
+                     model_dim: int, num_heads: int, num_layers: int,
+                     ffn_dim: int, fused_qkv: bool = False,
+                     tie_embeddings: bool = False,
+                     random_norms: bool = False) -> Dict:
+    """A JAX-layout encoder-decoder `Transformer` `variables` tree of
+    random weights: `src_embed` (and `trg_embed` unless tied),
+    `enc_layers_{i}` (attn, ffn, ln1, ln2), `dec_layers_{i}`
+    (self_attn, cross_attn, ffn, ln1-3), `enc_ln`, `dec_ln`, `head`."""
+    g = _Draws(seed, random_norms=random_norms)
+    d = model_dim
+    params = {"src_embed": g.table(src_vocab, d)}
+    if not tie_embeddings:
+        params["trg_embed"] = g.table(trg_vocab, d)
+    for i in range(num_layers):
+        params[f"enc_layers_{i}"] = {
+            "attn": g.attn(d, d, fused_qkv), "ffn": g.ffn(d, ffn_dim),
+            "ln1": g.ln(d), "ln2": g.ln(d)}
+    for i in range(num_layers):
+        params[f"dec_layers_{i}"] = {
+            "self_attn": g.attn(d, d, fused_qkv),
+            "cross_attn": g.attn(d, d, fused_qkv, cross=True),
+            "ffn": g.ffn(d, ffn_dim), "ln1": g.ln(d), "ln2": g.ln(d),
+            "ln3": g.ln(d)}
+    params["enc_ln"] = g.ln(d)
+    params["dec_ln"] = g.ln(d)
+    params["head"] = g.linear(d, trg_vocab)
+    return {"params": params}
+
+
+def bert_tree(seed: int, vocab: int, model_dim: int, num_heads: int,
+              num_layers: int, ffn_dim: int, max_len: int,
+              fused_qkv: bool = False, random_norms: bool = False
+              ) -> Dict:
+    """A JAX-layout `BertEncoder` `variables` tree of random weights:
+    `embed`, `pos_embed` [max_len, D], `layers_{i}` (attn, ffn, ln1,
+    ln2) and `ln`; the MLM head is tied to `embed`."""
+    g = _Draws(seed, random_norms=random_norms)
+    d = model_dim
+    params = {"embed": g.table(vocab, d), "pos_embed": g.table(max_len, d)}
+    for i in range(num_layers):
+        params[f"layers_{i}"] = {
+            "attn": g.attn(d, d, fused_qkv), "ffn": g.ffn(d, ffn_dim),
+            "ln1": g.ln(d), "ln2": g.ln(d)}
+    params["ln"] = g.ln(d)
     return {"params": params}
 
 

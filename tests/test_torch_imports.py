@@ -51,7 +51,10 @@ def test_scan_covers_the_package():
                 "serve/frontend.py", "serve/router.py",
                 "serve/replica.py", "parallel/distributed.py",
                 "parallel/collective.py", "parallel/sharding.py",
-                "parallel/serve_collective.py", "engine/tp_worker.py"):
+                "parallel/serve_collective.py", "engine/tp_worker.py",
+                "ops/functional.py", "ops/sequence.py",
+                "ops/beam_search.py", "testing/__init__.py",
+                "testing/op_test.py", "core/module.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -90,10 +93,28 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.serve.aio, paddle_tpu_torch.serve.kvxfer, "
             "paddle_tpu_torch.serve.frontend, "
             "paddle_tpu_torch.serve.router, "
-            "paddle_tpu_torch.serve.replica, paddle_tpu_torch; "
+            "paddle_tpu_torch.serve.replica, paddle_tpu_torch.ops.functional, "
+            "paddle_tpu_torch.ops.sequence, paddle_tpu_torch.ops.beam_search, "
+            "paddle_tpu_torch.testing.op_test, paddle_tpu_torch.core.module, "
+            "paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_testing_is_a_package_with_every_name():
+    """`paddle_tpu_torch.testing` became a package (with `op_test`); the
+    names the tests and chip_smoke.py import from it stay where they
+    were."""
+    import paddle_tpu_torch.testing as testing
+    from paddle_tpu_torch.testing import (causal_lm_tree, check_grad,
+                                          flash_case, paged_case,
+                                          write_serving_export)
+    from paddle_tpu_torch.testing.op_test import check_output, numeric_grad
+    assert hasattr(testing, "__path__")
+    assert all(callable(f) for f in (causal_lm_tree, check_grad, flash_case,
+                                     paged_case, write_serving_export,
+                                     check_output, numeric_grad))

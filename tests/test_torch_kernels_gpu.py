@@ -1236,3 +1236,134 @@ def test_replica_on_card_streams_through_the_graph():
                          block_size=4, num_blocks=64, max_prefill_tokens=64)
     assert out["tokens"] == direct.generate([[5, 9, 2, 7]],
                                             max_new_tokens=8)[0]
+
+
+# -- the encoder models on the card -------------------------------------------
+
+def _plain_flash(monkeypatch):
+    """FlashCore through the kernels' plain versions (on card tensors)."""
+    monkeypatch.setattr(flash, "flash_fwd", flash.flash_fwd_reference)
+    monkeypatch.setattr(flash, "flash_dq", flash.flash_dq_reference)
+    monkeypatch.setattr(flash, "flash_dkv", flash.flash_dkv_reference)
+
+
+def _encoder_run(layer, x, segs, gen_seed=0):
+    layer.zero_grad(set_to_none=True)
+    x = x.detach().clone().requires_grad_(True)
+    out = layer(x, segment_ids=segs)
+    g = torch.Generator(device="cuda").manual_seed(gen_seed)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    out.backward(do)
+    return out.detach(), x.grad.detach(), {
+        n: p.grad.detach().clone() for n, p in layer.named_parameters()}
+
+
+def _norm_gap(got, want):
+    """|got - want| over |want|, in norm."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm()) / max(float(w.norm()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_layer_kernels_match_plain(dtype, monkeypatch):
+    """A BERT-base EncoderLayer (d 768, 12 heads of 64) forward and
+    backward on a padded batch (segment ids from lengths, non-causal):
+    kernels 4, 5 and 6 each launch once, and the output, the input's
+    gradient and every parameter's gradient match the same layer through
+    the kernels' plain versions, in norm. A control run through `mha`'s
+    dense path (no flash code) measures the dtype's own spread against
+    the plain run: each tensor's gap must stay within 1e-4 of its norm
+    in f32 (2e-2 in bf16) or within twice the control's gap. The second
+    clause covers what float noise alone decides: the key bias's
+    gradient, 0 in exact arithmetic (softmax ignores a per-row shift),
+    and in bf16 the sums the layer rounds after attention (~2% of a
+    norm). A kernel fault moves a tensor by O(1) and the control not."""
+    _need_card()
+    from paddle_tpu_torch.models import EncoderLayer
+    from paddle_tpu_torch.ops.sequence import sequence_mask
+    dt = getattr(torch, dtype)
+    torch.manual_seed(0)
+    layer = EncoderLayer(768, 12, 3072, dropout=0.0, dtype=dt,
+                         device="cuda")
+    x = torch.randn(2, 128, 768, device="cuda").to(dt)
+    segs = sequence_mask(torch.tensor([128, 77], device="cuda"),
+                         128).to(torch.int32)
+    before = [f.launches for f in (flash.flash_fwd, flash.flash_dq,
+                                   flash.flash_dkv)]
+    got = _encoder_run(layer, x, segs)
+    assert [f.launches for f in (flash.flash_fwd, flash.flash_dq,
+                                 flash.flash_dkv)] == [n + 1 for n in before]
+    _plain_flash(monkeypatch)
+    want = _encoder_run(layer, x, segs)
+    monkeypatch.setattr(attention, "would_use_flash",
+                        lambda *args, **kwargs: False)
+    dense = _encoder_run(layer, x, segs)
+    bar = 1e-4 if dtype == "float32" else 2e-2
+
+    def gaps(run):
+        out = {"out": _norm_gap(run[0], want[0]),
+               "dx": _norm_gap(run[1], want[1])}
+        out.update({n: _norm_gap(run[2][n], w) for n, w in want[2].items()})
+        return out
+    kernel_gaps, control_gaps = gaps(got), gaps(dense)
+    bad = {n: (g, control_gaps[n]) for n, g in kernel_gaps.items()
+           if not g <= max(bar, 2.0 * control_gaps[n])}
+    assert not bad, (bad, kernel_gaps, control_gaps)
+
+
+def test_cross_attention_without_a_mask_takes_kernel_4():
+    """The Transformer's cross-attention without src_lengths (no mask)
+    goes to kernel 4 with Tq != Tk, and matches the dense reference."""
+    _need_card()
+    from paddle_tpu_torch.models import MultiHeadAttention
+    torch.manual_seed(1)
+    for fused in (False, True):
+        mha_ = MultiHeadAttention(512, 8, dropout=0.0, fused_qkv=fused,
+                                  device="cuda", cross=True)
+        q = torch.randn(2, 37, 512, device="cuda")
+        memory = torch.randn(2, 211, 512, device="cuda")
+        before = flash.flash_fwd.launches
+        with torch.no_grad():
+            out = mha_(q, kv=memory, causal=False)
+            assert flash.flash_fwd.launches == before + 1
+            qh, kh, vh = mha_._project_cross(q, memory)
+            want = mha_.out_proj(attention.reference_attention(
+                qh, kh, vh).reshape(2, 37, 512))
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+def test_transformer_decode_step_paged_matches_decode_step_on_card():
+    """Transformer.decode_step_paged (kernel 3, one launch per decoder
+    layer a step) gives decode_step's logits (the dense path) on the
+    card, f32, with shuffled block tables."""
+    _need_card()
+    from paddle_tpu_torch.models import Transformer
+    from paddle_tpu_torch.testing import transformer_tree
+    v, b, steps, bs = 61, 3, 9, 4
+    model = load_jax_params(
+        Transformer(v, v, 64, 8, 2, 128, dropout=0.0, max_len=32,
+                    device="cuda"),
+        transformer_tree(3, v, v, 64, 8, 2, 128, random_norms=True))
+    rs = np.random.RandomState(0)
+    src = torch.from_numpy(rs.randint(3, v, (b, 11))).cuda()
+    trg = torch.from_numpy(rs.randint(3, v, (b, steps))).cuda()
+    lens = torch.tensor([11, 6, 9], device="cuda")
+    mb = -(-steps // bs)
+    tables = torch.from_numpy(rs.permutation(np.arange(1, 1 + b * mb))
+                              .reshape(b, mb).astype(np.int32)).cuda()
+    pools = [(torch.zeros(1 + b * mb, bs, 8, 8, device="cuda"),
+              torch.zeros(1 + b * mb, bs, 8, 8, device="cuda"))
+             for _ in range(2)]
+    with torch.no_grad():
+        memory, src_mask = model.encode(src, lens)
+        caches = model.init_cache(b, max_len=steps)
+        before = paged.paged_attention.launches
+        for t in range(steps):
+            dense, caches = model.decode_step(trg[:, t], t, memory, caches,
+                                              src_mask)
+            pos = torch.full((b,), t, dtype=torch.int32, device="cuda")
+            slots = tables[:, t // bs].long() * bs + t % bs
+            got = model.decode_step_paged(trg[:, t], pos, memory, pools,
+                                          tables, pos + 1, slots, src_mask)
+            torch.testing.assert_close(got, dense, atol=1e-4, rtol=1e-4)
+        assert paged.paged_attention.launches == before + steps * 2
