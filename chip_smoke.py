@@ -62,7 +62,13 @@ user calls:
   padding as segment ids) — the flash kernels in the encoder and the
   decoder's causal self-attention — then, in f32, `beam_search` over
   `decode_step` and greedy decoding through `decode_step` and
-  `decode_step_paged` (the paged-decode kernel).
+  `decode_step_paged` (the paged-decode kernel);
+- `ops_sweep`: every case of `paddle_tpu_torch.testing.op_cases` (the
+  control flow, lattices, extras, detection ops and metrics, no kernel
+  of their own) on the card against the CPU, then `multiclass_nms` at
+  SSD300's detection-output settings over its 8,732 priors and
+  `ctc_loss` forward and backward over DeepSpeech2's 29-symbol alphabet
+  (B 32 x T 400), each timed on the device clock with its launches.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -112,6 +118,7 @@ from paddle_tpu_torch.obs import (DeviceMemoryMonitor, FlightRecorder,
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.ops import (beam_search, linear_cross_entropy,
                                   softmax_with_cross_entropy, tile_beams)
+from paddle_tpu_torch.ops import detection, lattice
 from paddle_tpu_torch.ops.sequence import sequence_mask
 from paddle_tpu_torch.optim import Adam
 from paddle_tpu_torch.parallel import DistStrategy, MeshTrainer, make_mesh
@@ -122,6 +129,7 @@ from paddle_tpu_torch.serve import replica as replica_cli
 from paddle_tpu_torch.serve.router import Router
 from paddle_tpu_torch.serve.sse import (http_get, parse_prometheus_values,
                                         stream_completion)
+from paddle_tpu_torch.testing import op_cases
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, bert_tree,
                                       causal_lm_tree,
@@ -3095,20 +3103,27 @@ class _Preempted(Exception):
 
 class _StallFirstStep:
     """A trainer whose first `train_step` sleeps `delay_s` first (a
-    wedged step for the watchdog); everything else is the inner one's."""
+    wedged step for the watchdog) and then calls `after_stall` (which
+    stops the watchdog, so that only the stalled step is watched: a later
+    step slowed by a loaded host is no hang); everything else is the
+    inner one's."""
 
-    def __init__(self, inner, delay_s: float):
+    def __init__(self, inner, delay_s: float, after_stall):
         self._inner = inner
         self._delay_s = delay_s
+        self._after_stall = after_stall
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
 
     def train_step(self, batch, generator=None):
-        if self._delay_s:
-            time.sleep(self._delay_s)
-            self._delay_s = 0.0
-        return self._inner.train_step(batch, generator=generator)
+        if not self._delay_s:
+            return self._inner.train_step(batch, generator=generator)
+        time.sleep(self._delay_s)
+        self._delay_s = 0.0
+        out = self._inner.train_step(batch, generator=generator)
+        self._after_stall()
+        return out
 
 
 def phase_resilient(cfg: dict, tree: dict, device: torch.device,
@@ -3126,7 +3141,8 @@ def phase_resilient(cfg: dict, tree: dict, device: torch.device,
     raises, then a trainer made anew resumes from `restore_latest`; (f)
     two injected shard-write faults and the last checkpoint corrupted,
     then `restore_latest` falls back; (g) a first step held past a 0.2 s
-    watchdog with a FlightRecorder. Checks: every run's curve and every
+    watchdog with a FlightRecorder, the watchdog stopped once that step
+    returns. Checks: every run's curve and every
     state leaf equal run (a)'s; the event counts; the ledger's counts ==
     the tapped event stream; MFU in (0, 1] (card); the memory gauge's
     peak >= torch.cuda.max_memory_allocated (card); run (a)'s registry
@@ -3384,9 +3400,10 @@ def phase_resilient(cfg: dict, tree: dict, device: torch.device,
                                                   reg_g.snapshot()},
                              out_dir=os.path.join(tmp_root, "flightrec"),
                              registry=reg_g)
-        stalled = _StallFirstStep(trainer, rcfg["stall_s"])
         with RunSupervisor(CheckpointManager(os.path.join(tmp_root, "g")),
                            watchdog_timeout_s=rcfg["watchdog_s"]) as sup:
+            stalled = _StallFirstStep(trainer, rcfg["stall_s"],
+                                      sup.stop_watchdog)
             out = run("g", stalled, supervisor=sup, recorder=rec)
         paths = rec.dump_paths()
         bundle = json.load(open(paths[0])) if len(paths) == 1 else {}
@@ -3831,6 +3848,178 @@ def phase_seq2seq(cfg: dict, device: torch.device, card: dict) -> dict:
 
 # -- configurations -------------------------------------------------------
 
+# -- the op library's sweep ---------------------------------------------
+
+def _device_ms(fn, iters: int, cuda: bool) -> List[float]:
+    """Each of `iters` calls of fn, ms, after one warm-up: on the device
+    clock (CUDA events around the call) on the card, the host's off it."""
+    fn()
+    out = []
+    for _ in range(iters):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def launches_per_call(fn, cuda: bool) -> Optional[dict]:
+    """One call of fn under `torch.profiler`: the host's kernel launches
+    (`cudaLaunchKernel*`) and the device's kernels, memsets and copies."""
+    if not cuda:
+        return None
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu_names = {e.name for e in events
+                 if e.device_type != torch.autograd.DeviceType.CUDA}
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in cpu_names]
+    return {"host_launches": sum(1 for e in events
+                                 if e.name.startswith("cudaLaunchKernel")),
+            "device_kernels": sum(1 for e in device
+                                  if not e.name.startswith("Mem")),
+            "device_memsets_copies": sum(1 for e in device
+                                         if e.name.startswith("Mem")),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in device) / 1e3}
+
+
+def ssd_inputs(sc: dict, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD300's detection-output inputs on the CPU: the priors of its six
+    layers (`prior_box`), decoded (`box_coder`, variances 0.1 / 0.2)
+    from seeded deltas, and a seeded softmax over the classes. Returns
+    (boxes [P, 4], scores [classes, P])."""
+    boxes, var = [], []
+    for fm, step, lo, hi, ratios in zip(sc["maps"], sc["steps"],
+                                        sc["min_sizes"], sc["max_sizes"],
+                                        sc["ratios"]):
+        b, v = detection.prior_box((fm, fm), (sc["image"], sc["image"]),
+                                   [lo], [hi], ratios, step=(step, step),
+                                   device="cpu")
+        boxes.append(b.reshape(-1, 4))
+        var.append(v.reshape(-1, 4))
+    priors, var = torch.cat(boxes), torch.cat(var)
+    check(priors.shape[0] == sc["priors"], f"ssd: {priors.shape[0]} priors")
+    g = torch.Generator().manual_seed(seed)
+    deltas = torch.randn(priors.shape, generator=g)
+    logits = 2.0 * torch.randn((priors.shape[0], sc["classes"]), generator=g)
+    return (detection.box_coder(priors, var, deltas, "decode"),
+            torch.softmax(logits, -1).T.contiguous())
+
+
+def _nms_near(boxes: torch.Tensor, scores: torch.Tensor, sc: dict,
+              tol: float = 1e-6) -> bool:
+    """Whether any pairwise IoU or any score lies within tol of its
+    threshold (where two devices' last bits may pick differently)."""
+    iou = detection.iou_similarity(boxes, boxes)
+    return bool((iou - sc["nms_threshold"]).abs().le(tol).any()
+                or (scores - sc["score_threshold"]).abs().le(tol).any())
+
+
+def ctc_inputs(cc: dict, seed: int):
+    """DeepSpeech2-shaped CTC inputs on the CPU: seeded logits [B, T, V],
+    labels [B, 80] of 20-80 symbols in 1..V-1 (0 is blank) and their
+    lengths."""
+    g = torch.Generator().manual_seed(seed)
+    b, t, v = cc["batch"], cc["frames"], cc["symbols"]
+    lo, hi = cc["labels"]
+    logits = torch.randn((b, t, v), generator=g)
+    lab_len = torch.randint(lo, hi + 1, (b,), generator=g)
+    labels = torch.randint(1, v, (b, hi), generator=g)
+    labels = torch.where(torch.arange(hi)[None, :] < lab_len[:, None],
+                         labels, torch.zeros_like(labels))
+    return logits, labels, torch.full((b,), t, dtype=torch.int64), lab_len
+
+
+def phase_ops_sweep(cfg: dict, device: torch.device, card: dict) -> dict:
+    """The op library's modules that brought no kernel, on the card:
+    (a) every case of `op_cases` on the card against the CPU (tensors on
+    the card, integers equal, floats within 1e-5; an NMS-family output
+    may differ only where a deciding IoU or score lies within 1e-6 of
+    its threshold, counted); (b) `multiclass_nms` at SSD300's
+    detection-output settings, equal to the CPU run under (a)'s rule;
+    (c) `ctc_loss` forward and backward at DeepSpeech2's alphabet, loss
+    and gradient within 1e-5 relative of the CPU run. (b) and (c): the
+    median of `op_iters` calls after one warm-up on the device clock,
+    and one call's launches under `torch.profiler`."""
+    cuda = device.type == "cuda"
+    t_phase = time.perf_counter()
+    sweep = op_cases.sweep(device)
+    out = {"ops_swept": sweep["ops"], "cases": sweep["swept"],
+           "near_threshold": sweep["near_threshold"]}
+
+    sc = cfg["ssd"]
+    boxes, scores = ssd_inputs(sc, SEED + 90)
+    args = (sc["score_threshold"], sc["nms_threshold"], sc["nms_top_k"],
+            sc["keep_top_k"], 0)
+    want, want_n = detection.multiclass_nms(boxes, scores, *args)
+    boxes_d, scores_d = boxes.to(device), scores.to(device)
+
+    def nms_call():
+        return detection.multiclass_nms(boxes_d, scores_d, *args)
+    got, got_n = nms_call()
+    check(got.device.type == device.type, "ssd: output off the device")
+    same = torch.equal(got.cpu(), want) and int(got_n) == int(want_n)
+    near = not same and _nms_near(boxes_d, scores_d, sc)
+    check(same or near, f"ssd: card and CPU differ, count {int(got_n)} vs "
+          f"{int(want_n)}, no IoU or score near its threshold")
+    ms = _device_ms(nms_call, cfg["op_iters"], cuda)
+    out["ssd_multiclass_nms"] = {
+        "priors": boxes.shape[0], "classes": sc["classes"],
+        "kept": int(want_n), "equal_to_cpu": same, "near_threshold": near,
+        "ms": float(np.median(ms)), "ms_each": ms,
+        "clock": "CUDA events" if cuda else "host (no card)",
+        "launches": launches_per_call(nms_call, cuda)}
+    out["near_threshold"] += int(near)
+
+    cc = cfg["ctc"]
+    logits, labels, in_len, lab_len = ctc_inputs(cc, SEED + 91)
+
+    def ctc_grad(x, lab, il, ll):
+        x = x.detach().requires_grad_(True)
+        loss = lattice.ctc_loss(torch.log_softmax(x, -1), lab, il, ll)
+        (g,) = torch.autograd.grad(loss.sum(), x)
+        return loss.detach(), g
+    want_l, want_g = ctc_grad(logits, labels, in_len, lab_len)
+    dev_args = [a.to(device) for a in (logits, labels, in_len, lab_len)]
+    got_l, got_g = ctc_grad(*dev_args)
+    check(got_l.device.type == device.type, "ctc: output off the device")
+    loss_gap = float(((got_l.cpu() - want_l).abs()
+                      / want_l.abs().clamp(min=1.0)).max())
+    grad_gap = float((got_g.cpu() - want_g).abs().max()
+                     / want_g.abs().max())
+    check(loss_gap <= 1e-5 and grad_gap <= 1e-5 and
+          bool(torch.isfinite(got_l).all()),
+          f"ctc: card vs CPU loss {loss_gap:.3g}, grad {grad_gap:.3g}")
+    ms = _device_ms(lambda: ctc_grad(*dev_args), cfg["op_iters"], cuda)
+    out["ctc_loss_fwd_bwd"] = {
+        "batch": cc["batch"], "frames": cc["frames"],
+        "symbols": cc["symbols"], "label_lengths": lab_len.tolist(),
+        "loss_mean": float(want_l.mean()), "loss_rel_gap": loss_gap,
+        "grad_rel_gap": grad_gap, "ms": float(np.median(ms)), "ms_each": ms,
+        "clock": "CUDA events" if cuda else "host (no card)",
+        "launches": launches_per_call(lambda: ctc_grad(*dev_args), cuda)}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "ops_sweep", **out, "device": card["kind"],
+          "nvidia_smi": card["smi"]})
+    return out
+
+
 def full_config() -> dict:
     return dict(
         lm=LM_BASE, vocab=LM_VOCAB, max_len=LM_MAX_LEN, dtype=torch.bfloat16,
@@ -3909,7 +4098,22 @@ def full_config() -> dict:
         seq2seq=dict(vocab=32000, model_dim=512, num_heads=8, num_layers=6,
                      ffn_dim=2048, seq=256, max_len=257, batch=16,
                      lengths=(128, 256), steps=6, lr=1e-4, sources=4,
-                     beam=4, decode=32, block_size=16, check_batch=4))
+                     beam=4, decode=32, block_size=16, check_batch=4),
+        # ops_sweep: SSD300 (Liu et al. 2016; the Caffe SSD VOC
+        # deploy.prototxt): six prior layers, 8,732 priors, 21 classes
+        # with background 0, confidence 0.01, NMS 0.45, top_k 400,
+        # keep_top_k 200; CTC over DeepSpeech2's English alphabet
+        # (Amodei et al. 2016: 28 symbols + blank 0), B 32 x T 400 frames,
+        # labels of 20-80 symbols
+        ssd=dict(image=300, maps=(38, 19, 10, 5, 3, 1),
+                 steps=(8, 16, 32, 64, 100, 300),
+                 min_sizes=(30, 60, 111, 162, 213, 264),
+                 max_sizes=(60, 111, 162, 213, 264, 315),
+                 ratios=((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)),
+                 classes=21, score_threshold=0.01, nms_threshold=0.45,
+                 nms_top_k=400, keep_top_k=200, priors=8732),
+        ctc=dict(batch=32, frames=400, symbols=29, labels=(20, 80)),
+        op_iters=5)
 
 
 def tiny_config() -> dict:
@@ -3950,7 +4154,14 @@ def tiny_config() -> dict:
         seq2seq=dict(vocab=97, model_dim=64, num_heads=8, num_layers=2,
                      ffn_dim=128, seq=24, max_len=25, batch=4,
                      lengths=(12, 24), steps=6, lr=1e-3, sources=4,
-                     beam=4, decode=8, block_size=4, check_batch=2))
+                     beam=4, decode=8, block_size=4, check_batch=2),
+        ssd=dict(image=300, maps=(5, 3, 1), steps=(60, 100, 300),
+                 min_sizes=(60, 162, 264), max_sizes=(111, 213, 315),
+                 ratios=((2,), (2, 3), (2,)), classes=5,
+                 score_threshold=0.01, nms_threshold=0.45, nms_top_k=16,
+                 keep_top_k=10, priors=158),
+        ctc=dict(batch=4, frames=24, symbols=29, labels=(3, 8)),
+        op_iters=2)
 
 
 @contextlib.contextmanager
@@ -4017,6 +4228,7 @@ def main(argv=None) -> int:
         phase_optimizers(cfg, device)
         bert = phase_bert(cfg, device, card)
         seq2seq = phase_seq2seq(cfg, device, card)
+        phase_ops_sweep(cfg, device, card)
 
         rows = []
         for name, (source, replaces, _) in KERNEL_ROWS.items():

@@ -492,14 +492,16 @@ def _triangle_weights(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
         dtype=dtype, device=device)
 
 
-def _linspace(stop: float, num: int, dtype, device) -> torch.Tensor:
-    """jnp.linspace(0, stop, num) in its arithmetic: stop * (i / div),
-    the last point exactly stop; one point is [0]."""
+def _linspace(stop: float, num: int, dtype, device,
+              start: float = 0.0) -> torch.Tensor:
+    """jnp.linspace(start, stop, num) in its arithmetic:
+    start * (1 - i / div) + stop * (i / div), the last point exactly
+    stop; one point is [start]."""
     if num <= 1:
-        return torch.zeros(1, dtype=dtype, device=device)
+        return torch.full((1,), start, dtype=dtype, device=device)
     div = num - 1
     step = torch.arange(div, dtype=dtype, device=device) / div
-    return torch.cat([torch.full((1,), 0.0, dtype=dtype, device=device)
+    return torch.cat([torch.full((1,), start, dtype=dtype, device=device)
                       * (1 - step) + stop * step,
                       torch.full((1,), stop, dtype=dtype, device=device)])
 

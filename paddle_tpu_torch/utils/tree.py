@@ -74,8 +74,11 @@ def nest(flat: Mapping[str, Any]) -> Dict:
     return tree
 
 
-def map_leaves(fn, tree):
-    """A tree of `tree`'s structure with `fn(leaf)` at every leaf (as
-    jax.tree.map over one tree)."""
+def map_leaves(fn, tree, *rest):
+    """A tree of `tree`'s structure with `fn(leaf, *rest_leaves)` at
+    every leaf (as jax.tree.map; `rest` are trees of the same
+    structure)."""
+    others = [[leaf for _, leaf in flatten_with_keys(r)] for r in rest]
     return unflatten_like(tree, iter(
-        [fn(leaf) for _, leaf in flatten_with_keys(tree)]))
+        [fn(leaf, *(o[i] for o in others))
+         for i, (_, leaf) in enumerate(flatten_with_keys(tree))]))

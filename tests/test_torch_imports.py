@@ -54,7 +54,10 @@ def test_scan_covers_the_package():
                 "parallel/serve_collective.py", "engine/tp_worker.py",
                 "ops/functional.py", "ops/sequence.py",
                 "ops/beam_search.py", "testing/__init__.py",
-                "testing/op_test.py", "core/module.py"):
+                "testing/op_test.py", "core/module.py",
+                "ops/control_flow.py", "ops/lattice.py", "ops/extras.py",
+                "ops/detection.py", "metrics/__init__.py",
+                "metrics/metrics.py", "testing/op_cases.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -96,6 +99,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.serve.replica, paddle_tpu_torch.ops.functional, "
             "paddle_tpu_torch.ops.sequence, paddle_tpu_torch.ops.beam_search, "
             "paddle_tpu_torch.testing.op_test, paddle_tpu_torch.core.module, "
+            "paddle_tpu_torch.ops.control_flow, paddle_tpu_torch.ops.lattice, "
+            "paddle_tpu_torch.ops.extras, paddle_tpu_torch.ops.detection, "
+            "paddle_tpu_torch.metrics, paddle_tpu_torch.testing.op_cases, "
             "paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "

@@ -75,9 +75,18 @@ def _counter_value(registry, name, **labels):
     return (fam.labels(**labels) if labels else fam).value
 
 
+# objectives a loaded CPU keeps: a JAX replica's first request takes
+# 585-776 ms on a busy machine, past the default 500 ms TTFT, and a
+# broken objective sheds later prompts (slo_ttft, 503); the router test
+# checks streams, and shedding is pinned in test_torch_serve_http.py and
+# test_torch_async_frontdoor.py
+LOOSE_SLO = ("--slo-ttft-ms", "60000", "--slo-tpot-ms", "60000",
+             "--slo-queue-wait-ms", "60000")
+
+
 @pytest.fixture(scope="module")
 def fleet(export):
-    fes = {pkg: _replica(pkg, export) for pkg in ("jax", "port")}
+    fes = {pkg: _replica(pkg, export, *LOOSE_SLO) for pkg in ("jax", "port")}
     yield fes
     for fe in fes.values():
         fe.stop()
