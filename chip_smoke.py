@@ -68,7 +68,15 @@ user calls:
   of their own) on the card against the CPU, then `multiclass_nms` at
   SSD300's detection-output settings over its 8,732 priors and
   `ctc_loss` forward and backward over DeepSpeech2's 29-symbol alphabet
-  (B 32 x T 400), each timed on the device clock with its launches.
+  (B 32 x T 400), each timed on the device clock with its launches;
+- `zoo`: the nn layers (no kernel of their own: cuDNN's convolutions
+  and PyTorch's ops) on the card against the CPU, every case of
+  `paddle_tpu_torch.testing.nn_cases` and one ResNet((1, 1, 1, 1))
+  training step; ResNet-50 training at the repo's `resnet50` spec
+  (224x224, B 64, bf16, Momentum), timed and traced, beside its FLOP
+  bound, with a float32 run and a small-lr bf16 run from the same
+  weights as its witness; the stacked-LSTM classifier at its `stacked_lstm` spec (B 64
+  x T 100, f32, Adam).
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -97,7 +105,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,11 +118,14 @@ from paddle_tpu_torch.engine.tp_worker import param_bytes
 from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
-from paddle_tpu_torch.models import (BertEncoder, CausalLM, Transformer,
+from paddle_tpu_torch.models import (BertEncoder, CausalLM, ResNet,
+                                     TextClassifier, Transformer,
                                      load_jax_params, to_jax_params)
+from paddle_tpu_torch.nn.layers import Conv2D, Linear
 from paddle_tpu_torch.obs import (DeviceMemoryMonitor, FlightRecorder,
                                   GoodputLedger, MetricsServer,
                                   causal_lm_step_flops, param_count)
+from paddle_tpu_torch.obs.goodput import PEAK_FLOPS as CARD_PEAK_FLOPS
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.ops import (beam_search, linear_cross_entropy,
                                   softmax_with_cross_entropy, tile_beams)
@@ -129,7 +140,7 @@ from paddle_tpu_torch.serve import replica as replica_cli
 from paddle_tpu_torch.serve.router import Router
 from paddle_tpu_torch.serve.sse import (http_get, parse_prometheus_values,
                                         stream_completion)
-from paddle_tpu_torch.testing import op_cases
+from paddle_tpu_torch.testing import nn_cases, op_cases
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, bert_tree,
                                       causal_lm_tree,
@@ -2349,21 +2360,25 @@ def sdpa_backend(names: Sequence[str]) -> str:
     return "unknown"
 
 
-def device_events(prof) -> Dict[str, float]:
-    """Device time, us, by name of what ran on the card (kernels,
-    memsets, copies) in a `torch.profiler` trace. Only the device's own
-    activities count: a CPU op's device time, or a user annotation's
-    device span (`Optimizer.step#Adam.step`), is its kernels' again."""
+def device_activities(prof) -> list:
+    """What ran on the card in a `torch.profiler` trace (kernels,
+    memsets, copies), one event each. Only the device's own activities
+    count: a CPU op's device time, or a user annotation's device span
+    (`Optimizer.step#Adam.step`), is its kernels' again."""
     events = prof.events()
     cpu_names = {e.name for e in events
                  if e.device_type != torch.autograd.DeviceType.CUDA}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in cpu_names
+            and not e.name.startswith("Activity Buffer")]
+
+
+def device_events(prof) -> Dict[str, float]:
+    """Device time, us, by name of what ran on the card in a trace."""
     out = {}
-    for e in events:
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.name in cpu_names
-                or e.name.startswith("Activity Buffer")):
-            continue
+    for e in device_activities(prof):
         out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
     return out
 
@@ -2570,11 +2585,30 @@ def phase_train(cfg: dict, tree: dict, device: torch.device,
     return out
 
 
-def step_profile(trainer, batch, step_ms: float) -> dict:
+LM_GROUPS = list(TENSOR_CORE_KERNELS) + ["gemm", "other"]
+
+
+def lm_kernel_group(name: str, in_optimizer: bool) -> str:
+    """A kernel's group in a transformer step: a flash kernel of
+    TENSOR_CORE_KERNELS, a GEMM, or other."""
+    group = next((g for g, key in TENSOR_CORE_KERNELS.items()
+                  if key in name), None)
+    if group is not None:
+        return group
+    return ("gemm" if any(k in name.lower() for k in GEMM_NAME_KEYS)
+            else "other")
+
+
+def step_profile(trainer, batch, step_ms: float,
+                 kernel_group: Callable[[str, bool], str] = lm_kernel_group,
+                 groups: Sequence[str] = LM_GROUPS) -> dict:
     """One more training step under `torch.profiler` (after the counted
     steps; its launches are not counted): the card's busy time in the
-    step by kernel group, and the idle share against the median
-    unprofiled step `step_ms`."""
+    step by `kernel_group(name, in_optimizer)` (in_optimizer: the kernel
+    starts inside the device span of `Optimizer.step`), each group's
+    kernel count and first names, the host's kernel launches
+    (`trace_counts`), the copy kernels, and the idle share against the
+    median unprofiled step `step_ms`."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -2582,22 +2616,33 @@ def step_profile(trainer, batch, step_ms: float) -> dict:
         t0 = time.perf_counter()
         float(trainer.train_step(batch)["loss"])
         wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    by_group = dict.fromkeys(list(TENSOR_CORE_KERNELS) + ["gemm", "other"],
-                             0.0)
-    for name, us in events.items():
-        low = name.lower()
-        group = next((g for g, key in TENSOR_CORE_KERNELS.items()
-                      if key in name), None)
-        if group is None:
-            group = ("gemm" if any(k in low for k in GEMM_NAME_KEYS)
-                     else "other")
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and getattr(e, "is_user_annotation", False)
+             and e.name.startswith("Optimizer.step")]
+    by_group = dict.fromkeys(groups, 0.0)
+    count = dict.fromkeys(groups, 0)
+    names: Dict[str, set] = {g: set() for g in groups}
+    by_name: Dict[str, float] = {}
+    copies = 0
+    for e in device_activities(prof):
+        start, us = e.time_range.start, e.time_range.elapsed_us()
+        group = kernel_group(e.name, any(a <= start < b for a, b in spans))
         by_group[group] += us / 1e3
+        count[group] += 1
+        names[group].add(e.name[:100])
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        copies += ("copy" in e.name.lower() or e.name.startswith("Memcpy"))
     busy = sum(by_group.values())
-    top = sorted(events.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_busy_ms": busy, "step_ms_median": step_ms,
             "idle_share": 1.0 - busy / step_ms,
             "profiled_step_wall_ms": wall, "busy_ms_by_group": by_group,
+            "kernels_by_group": count,
+            "first_names_by_group": {g: sorted(n)[:4]
+                                     for g, n in names.items()},
+            "optimizer_spans": len(spans), "copy_kernels": copies,
+            "host_launches": trace_counts(prof)["host_launches"],
             "top_kernels_ms": {n[:120]: us / 1e3 for n, us in top},
             "clock": "torch.profiler device time"}
 
@@ -3871,9 +3916,22 @@ def _device_ms(fn, iters: int, cuda: bool) -> List[float]:
     return out
 
 
+def trace_counts(prof) -> dict:
+    """A trace's host kernel launches (`cudaLaunchKernel*`) and the
+    device's kernels, memsets and copies, and their busy time."""
+    device = device_activities(prof)
+    return {"host_launches": sum(1 for e in prof.events()
+                                 if e.name.startswith("cudaLaunchKernel")),
+            "device_kernels": sum(1 for e in device
+                                  if not e.name.startswith("Mem")),
+            "device_memsets_copies": sum(1 for e in device
+                                         if e.name.startswith("Mem")),
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in device) / 1e3}
+
+
 def launches_per_call(fn, cuda: bool) -> Optional[dict]:
-    """One call of fn under `torch.profiler`: the host's kernel launches
-    (`cudaLaunchKernel*`) and the device's kernels, memsets and copies."""
+    """`trace_counts` of one call of fn under `torch.profiler`."""
     if not cuda:
         return None
     torch.cuda.synchronize()
@@ -3882,21 +3940,7 @@ def launches_per_call(fn, cuda: bool) -> Optional[dict]:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    cpu_names = {e.name for e in events
-                 if e.device_type != torch.autograd.DeviceType.CUDA}
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and e.name not in cpu_names]
-    return {"host_launches": sum(1 for e in events
-                                 if e.name.startswith("cudaLaunchKernel")),
-            "device_kernels": sum(1 for e in device
-                                  if not e.name.startswith("Mem")),
-            "device_memsets_copies": sum(1 for e in device
-                                         if e.name.startswith("Mem")),
-            "device_busy_ms": sum(e.time_range.elapsed_us()
-                                  for e in device) / 1e3}
+    return trace_counts(prof)
 
 
 def ssd_inputs(sc: dict, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -4020,6 +4064,321 @@ def phase_ops_sweep(cfg: dict, device: torch.device, card: dict) -> dict:
     return out
 
 
+# -- the model zoo --------------------------------------------------------
+
+ZOO_BF16_PEAK = CARD_PEAK_FLOPS["NVIDIA H100 80GB HBM3"][16]
+CONV_NAME_KEYS = ("fprop", "dgrad", "wgrad", "conv", "implicit_gemm")
+LAYOUT_NAME_KEYS = ("nchwtonhwc", "nhwctonchw", "transpose_readwrite")
+
+
+def forward_flops(model, *inputs) -> float:
+    """6 x the multiply-adds of one forward's convolutions and Linears
+    (2 a multiply-add, x3 for forward and backward), counted from their
+    shapes by forward hooks on one eval-mode forward."""
+    macs = [0]
+
+    def conv_hook(m, inp, out):
+        kh, kw, cin, _ = m.weight.shape
+        macs[0] += out.numel() * kh * kw * cin
+
+    def linear_hook(m, inp, out):
+        macs[0] += out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, Conv2D)]
+    hooks += [m.register_forward_hook(linear_hook) for m in model.modules()
+              if isinstance(m, Linear)]
+    was = model.training
+    with torch.no_grad():
+        model.eval()(*inputs)
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return 6.0 * macs[0]
+
+
+ZOO_GROUPS = ("conv", "layout", "gemm", "bn_elementwise", "optimizer")
+# the small lr at which `resnet50_witness` runs bf16 again
+WITNESS_LR = 0.01
+
+
+def zoo_kernel_group(name: str, in_optimizer: bool) -> str:
+    """A kernel's group in a vision or RNN step: the optimizer's update,
+    a layout transform (NCHW <-> NHWC; none while the convolutions run
+    channels-last), a convolution, a GEMM, or BatchNorm and the other
+    elementwise kernels."""
+    low = name.lower()
+    if in_optimizer:
+        return "optimizer"
+    if any(k in low for k in LAYOUT_NAME_KEYS):
+        return "layout"
+    if any(k in low for k in CONV_NAME_KEYS) or "cudnn" in low:
+        return "conv"
+    if any(k in low for k in GEMM_NAME_KEYS):
+        return "gemm"
+    return "bn_elementwise"
+
+
+def classify_loss(module, batch, generator, training):
+    """Mean softmax cross-entropy of the logits in float32
+    (paddle_tpu/benchmark/models.py's image and LSTM specs)."""
+    x, y = batch
+    return softmax_with_cross_entropy(module(x).float(), y).mean(), {}
+
+
+def _zoo_step(build, batch, device: torch.device, tree: dict,
+              cudnn: bool = True) -> dict:
+    """One Momentum(0.1, 0.9) Trainer step of a model made by `build`
+    on `device` from `tree`: the loss, every gradient and the new
+    buffers (on the CPU)."""
+    model = load_jax_params(build(device), tree)
+    trainer = Trainer(model, optim.Momentum(model.parameters(), 0.1,
+                                            momentum=0.9), classify_loss)
+    cd = torch.backends.cudnn       # flags() resets what it is not given
+    with cd.flags(enabled=cudnn, benchmark=cd.benchmark,
+                  deterministic=cd.deterministic, allow_tf32=cd.allow_tf32):
+        loss = float(trainer.train_step(tuple(t.to(device) for t in batch))
+                     ["loss"])
+    return {"loss": loss,
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in
+                        model.named_buffers()}}
+
+
+def zoo_step_vs_cpu(zc: dict, device: torch.device) -> dict:
+    """One f32 training step of ResNet((1, 1, 1, 1)) on the card and on
+    the CPU from the same weights and batch, and a control on the card
+    with cuDNN off (PyTorch's own CUDA convolutions: another float32
+    order). The loss within 1e-4 relative; the gradients in norm by
+    `_grad_gap`'s bar (ReLU gates flip on float32 noise), the tensors
+    whose gradient is 0 up to rounding taken out by the control; the
+    BatchNorm buffers within 1e-4 of their largest element."""
+    sc = zc["step"]
+    torch.manual_seed(SEED + 60)
+
+    def build(dev):
+        return ResNet(tuple(sc["layers"]), num_classes=sc["classes"],
+                      device=dev)
+    tree = to_jax_params(build("cpu"))
+    g = torch.Generator().manual_seed(SEED + 61)
+    batch = (torch.randn((sc["batch"], sc["image"], sc["image"], 3),
+                         generator=g),
+             torch.randint(0, sc["classes"], (sc["batch"],), generator=g))
+    cpu = _zoo_step(build, batch, torch.device("cpu"), tree)
+    card = _zoo_step(build, batch, device, tree)
+    control = _zoo_step(build, batch, device, tree, cudnn=False)
+    noise = _noise_only(cpu["grads"], control["grads"])
+    out = {"layers": sc["layers"], "image": sc["image"],
+           "batch": sc["batch"], "loss_cpu": cpu["loss"],
+           "zero_up_to_rounding": noise}
+    for name, run in (("card_vs_cpu", card), ("control_vs_cpu", control)):
+        rel = abs(run["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        buf = max(nn_cases.gap(run["buffers"][n], b)
+                  for n, b in cpu["buffers"].items())
+        out[name] = {"loss": run["loss"], "loss_rel_err": rel,
+                     "buffers_worst_rel_err": buf,
+                     **_grad_gap(run["grads"], cpu["grads"], noise)}
+        check(rel <= 1e-4, f"zoo step {name}: loss {run['loss']} vs "
+              f"{cpu['loss']}")
+        check(buf <= 1e-4, f"zoo step {name}: BN buffers off by {buf}")
+        check(out[name]["grad_worst_over_bar"] <= 1.0,
+              f"zoo step {name}: gradient {out[name]['grad_worst_param']} "
+              f"{out[name]['grad_worst_over_bar']} x its bar")
+    return out
+
+
+def _grad_dot(a: Dict[str, torch.Tensor],
+              b: Dict[str, torch.Tensor]) -> float:
+    """The dot product of two gradients, every tensor as one vector."""
+    return sum(float((a[n].double() * b[n].double()).sum()) for n in a)
+
+
+def _grad_cosine(a: Dict[str, torch.Tensor],
+                 b: Dict[str, torch.Tensor]) -> float:
+    return _grad_dot(a, b) / (_grad_dot(a, a) * _grad_dot(b, b)) ** 0.5
+
+
+def _resnet_run(rc: dict, device: torch.device, start: dict, batch,
+                dtype: torch.dtype, lr: float, steps: int):
+    """`steps` Momentum(lr, 0.9) steps of the `rc` ResNet in `dtype` from
+    the weights and buffers `start` on `batch`: (each step's loss, the
+    first step's gradients)."""
+    model = ResNet(tuple(rc["layers"]), num_classes=rc["classes"],
+                   dtype=dtype, device=device)
+    model.load_state_dict(start)
+    trainer = Trainer(model, optim.Momentum(model.parameters(), lr,
+                                            momentum=0.9), classify_loss)
+    losses = [float(trainer.train_step(batch)["loss"])]
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    losses += [float(trainer.train_step(batch)["loss"])
+               for _ in range(steps - 1)]
+    return losses, grads
+
+
+def resnet50_witness(rc: dict, device: torch.device, start: dict, batch,
+                     losses: List[float], grads: dict) -> dict:
+    """What backs the bf16 run's numbers, from its first weights and its
+    batch: (1) the same steps in float32 (TF32 off) at the same lr, its
+    first two losses within 5e-2 relative of bf16's (bf16 keeps 8 bits,
+    over 53 convolutions and norms; the second loss is the first that
+    the backward moves), beside bf16's losses; the gradients' norms and
+    the cosine of bf16's first gradient with float32's, and, as its
+    scale, of float32's with float32's on the input shaken by 2^-9
+    relative (bf16's rounding); (2) the same steps in bf16 at
+    WITNESS_LR, whose loss falls (the bf16 backward descends)."""
+    n = len(losses)
+    f32, g32 = _resnet_run(rc, device, start, batch, torch.float32, 0.1,
+                           n)
+    x, y = batch
+    g = torch.Generator(device=x.device).manual_seed(SEED + 66)
+    shaken = x * (1 + 2.0 ** -9 * torch.randn(x.shape, generator=g,
+                                              device=x.device))
+    _, g_shaken = _resnet_run(rc, device, start, (shaken, y),
+                              torch.float32, 0.1, 1)
+    small, _ = _resnet_run(rc, device, start, batch, rc["dtype"],
+                           WITNESS_LR, n)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:2], f32)]
+    out = {"steps": n, "f32_losses": f32, "first_losses_rel_err": rel,
+           "grad_norm": _grad_dot(grads, grads) ** 0.5,
+           "f32_grad_norm": _grad_dot(g32, g32) ** 0.5,
+           "grad_cosine_vs_f32": _grad_cosine(grads, g32),
+           "f32_grad_cosine_shaken_input": _grad_cosine(g_shaken, g32),
+           "witness_lr": WITNESS_LR, "witness_losses": small}
+    check(max(rel) <= 5e-2, f"resnet witness: first losses {losses[:2]} "
+          f"against float32's {f32[:2]}")
+    check(all(np.isfinite(small)) and small[-1] < small[0],
+          f"resnet witness: at lr {WITNESS_LR} the loss went "
+          f"{small}")
+    return out
+
+
+def zoo_resnet50(zc: dict, device: torch.device) -> dict:
+    """ResNet-50 training at paddle_tpu/benchmark/models.py's `resnet50`
+    spec: 224x224x3 seeded inputs and labels over 1000 classes, bf16
+    compute over float32 parameters, Momentum(0.1, 0.9), softmax
+    cross-entropy in float32. Warm-up steps, then timed steps on the
+    repeated batch (host clock around each synchronised step); one more
+    step traced; the step's FLOP bound; `resnet50_witness` from the
+    same first weights."""
+    cuda = device.type == "cuda"
+    rc = zc["resnet"]
+    torch.manual_seed(SEED + 62)
+    model = ResNet(tuple(rc["layers"]), num_classes=rc["classes"],
+                   dtype=rc["dtype"], device=device)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=device).manual_seed(SEED + 63)
+    b, img = rc["batch"], rc["image"]
+    batch = (torch.randn((b, img, img, 3), generator=g, device=device),
+             torch.randint(0, rc["classes"], (b,), generator=g,
+                           device=device))
+    flops = forward_flops(model, batch[0])
+    trainer = Trainer(model, optim.Momentum(model.parameters(), 0.1,
+                                            momentum=0.9), classify_loss)
+    warm = []
+    for i in range(rc["warmup"]):
+        warm.append(float(trainer.train_step(batch)["loss"]))
+        if i == 0:
+            first_grads = {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+    _phase_mem(cuda)
+    losses, step_ms = [], []
+    for _ in range(rc["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"resnet: non-finite losses {losses}")
+    med = float(np.median(step_ms))
+    bound = flops / ZOO_BF16_PEAK * 1e3
+    out = {"layers": rc["layers"], "batch": b, "image": img,
+           "classes": rc["classes"],
+           "dtype": f"{str(rc['dtype'])[6:]} compute, float32 parameters",
+           "optimizer": "Momentum(0.1, momentum=0.9)",
+           "warmup": rc["warmup"], "warmup_losses": warm, "losses": losses,
+           "step_ms": step_ms,
+           "step_ms_median": med, "imgs_per_s": b / med * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "step_flops": flops, "bound_ms": bound,
+           "bound_by": "operations (bf16 peak 989.4 TFLOP/s)",
+           "step_over_bound": med / bound}
+    if cuda:
+        prof = step_profile(trainer, batch, med, zoo_kernel_group,
+                            ZOO_GROUPS)
+        out.update(profile=prof, launches_per_step=prof["host_launches"],
+                   channels_last=prof["kernels_by_group"]["layout"] == 0)
+    del trainer, model
+    out["witness"] = resnet50_witness(rc, device, start, batch,
+                                      warm + losses, first_grads)
+    return out
+
+
+def zoo_lstm(zc: dict, device: torch.device) -> dict:
+    """The stacked-LSTM classifier at models.py's `stacked_lstm` spec:
+    `TextClassifier`, float32, Adam 1e-3, seeded tokens and 2-class
+    labels; one warm-up step, then timed steps; one more traced."""
+    cuda = device.type == "cuda"
+    lc = zc["lstm"]
+    torch.manual_seed(SEED + 64)
+    model = TextClassifier(vocab=lc["vocab"], embed_dim=lc["embed"],
+                           hidden=lc["hidden"], layers=lc["layers"],
+                           device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 65)
+    b, t = lc["batch"], lc["seq"]
+    batch = (torch.randint(0, lc["vocab"], (b, t), generator=g,
+                           device=device),
+             torch.randint(0, 2, (b,), generator=g, device=device))
+    trainer = Trainer(model, Adam(model.parameters(), 1e-3), classify_loss)
+    trainer.train_step(batch)
+    _phase_mem(cuda)
+    losses, step_ms = [], []
+    for _ in range(lc["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)), f"lstm: non-finite losses {losses}")
+    med = float(np.median(step_ms))
+    out = {"vocab": lc["vocab"], "embed": lc["embed"],
+           "hidden": lc["hidden"], "layers": lc["layers"], "batch": b,
+           "seq": t, "dtype": "float32", "optimizer": "Adam(1e-3)",
+           "losses": losses, "step_ms": step_ms, "ms_per_batch": med,
+           "tokens_per_s": b * t / med * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+    if cuda:
+        prof = step_profile(trainer, batch, med, zoo_kernel_group,
+                            ZOO_GROUPS)
+        out.update(launches_per_step=prof["host_launches"],
+                   idle_share=prof["idle_share"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   busy_ms_by_group=prof["busy_ms_by_group"])
+    return out
+
+
+def phase_zoo(cfg: dict, device: torch.device, card: dict) -> dict:
+    """The nn layers and the model zoo, which bring no kernel of their
+    own (cuDNN's convolutions, PyTorch's ops): (a) every case of
+    `testing.nn_cases` on the card against the CPU (each output,
+    gradient and buffer within 1e-4 of its largest element), then one
+    ResNet((1, 1, 1, 1)) training step against the CPU; (b) ResNet-50
+    training at the repo's `resnet50` spec; (c) the stacked-LSTM
+    classifier at its `stacked_lstm` spec."""
+    zc = cfg["zoo"]
+    t_phase = time.perf_counter()
+    layers = nn_cases.sweep(device)
+    out = {"layers_worst_over_bar": {k: v["worst"] for k, v in
+                                     layers.items()},
+           "layers_bar": nn_cases.BAR,
+           "resnet_step": zoo_step_vs_cpu(zc, device)}
+    tag = {"device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "zoo", "part": "layers", **out, **tag})
+    out["resnet50"] = zoo_resnet50(zc, device)
+    emit({"phase": "zoo", "part": "resnet50", **out["resnet50"], **tag})
+    out["stacked_lstm"] = zoo_lstm(zc, device)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "zoo", "part": "stacked_lstm", **out["stacked_lstm"],
+          "zoo_seconds": out["seconds"], **tag})
+    return out
+
+
 def full_config() -> dict:
     return dict(
         lm=LM_BASE, vocab=LM_VOCAB, max_len=LM_MAX_LEN, dtype=torch.bfloat16,
@@ -4113,7 +4472,18 @@ def full_config() -> dict:
                  classes=21, score_threshold=0.01, nms_threshold=0.45,
                  nms_top_k=400, keep_top_k=200, priors=8732),
         ctc=dict(batch=32, frames=400, symbols=29, labels=(20, 80)),
-        op_iters=5)
+        op_iters=5,
+        # zoo: paddle_tpu/benchmark/models.py's resnet50 (224x224x3, 1000
+        # classes, B 64, Momentum 0.1 / 0.9, bf16) and stacked_lstm
+        # (vocab 10000, embed 128, hidden 512, 2 layers, B 64 x T 100,
+        # Adam 1e-3, f32) specs; the card-vs-CPU step at 64x64, B 8
+        zoo=dict(step=dict(layers=(1, 1, 1, 1), image=64, batch=8,
+                           classes=10),
+                 resnet=dict(layers=(3, 4, 6, 3), image=224, batch=64,
+                             classes=1000, dtype=torch.bfloat16, warmup=2,
+                             steps=8),
+                 lstm=dict(vocab=10000, embed=128, hidden=512, layers=2,
+                           batch=64, seq=100, steps=5)))
 
 
 def tiny_config() -> dict:
@@ -4161,7 +4531,14 @@ def tiny_config() -> dict:
                  score_threshold=0.01, nms_threshold=0.45, nms_top_k=16,
                  keep_top_k=10, priors=158),
         ctc=dict(batch=4, frames=24, symbols=29, labels=(3, 8)),
-        op_iters=2)
+        op_iters=2,
+        zoo=dict(step=dict(layers=(1, 1, 1, 1), image=32, batch=2,
+                           classes=10),
+                 resnet=dict(layers=(1, 1, 1, 1), image=32, batch=2,
+                             classes=10, dtype=torch.float32, warmup=1,
+                             steps=2),
+                 lstm=dict(vocab=50, embed=8, hidden=16, layers=2, batch=2,
+                           seq=8, steps=2)))
 
 
 @contextlib.contextmanager
@@ -4229,6 +4606,7 @@ def main(argv=None) -> int:
         bert = phase_bert(cfg, device, card)
         seq2seq = phase_seq2seq(cfg, device, card)
         phase_ops_sweep(cfg, device, card)
+        phase_zoo(cfg, device, card)
 
         rows = []
         for name, (source, replaces, _) in KERNEL_ROWS.items():

@@ -32,7 +32,8 @@ from torch import nn
 
 from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.models.convert import (load_jax_opt_state,
-                                             load_jax_params, param_path)
+                                             load_jax_params, param_path,
+                                             persistent_buffers)
 from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.rng import fold_in
 from paddle_tpu_torch.utils.tree import flatten_with_keys, nest
@@ -108,12 +109,8 @@ class Trainer:
         return next(self.module.parameters()).device
 
     def _buffers(self) -> List[Tuple[str, torch.Tensor]]:
-        """The module's persistent buffers (its state_dict minus its
-        parameters)."""
-        params = {n for n, _ in self.module.named_parameters()}
-        return [(n, t) for n, t in
-                self.module.state_dict(keep_vars=True).items()
-                if n not in params]
+        """The module's persistent buffers (its JAX `state`)."""
+        return persistent_buffers(self.module)
 
     def step_generator(self) -> torch.Generator:
         """The default generator of the current step, seeded from
@@ -148,15 +145,8 @@ class Trainer:
         """Copy a `TrainState` (tensor or numpy leaves, e.g. a restored
         checkpoint) into the module, the optimizer and `step`, in place.
         Restoring `step` restores the step's default generator too."""
-        load_jax_params(self.module, {"params": ts.params})
-        flat = dict(flatten_with_keys(ts.state))
-        buffers = self._buffers()
-        if set(flat) != {param_path(n) for n, _ in buffers}:
-            raise KeyError(f"state trees differ: {sorted(flat)}")
-        for n, b in buffers:
-            src = flat[param_path(n)]
-            b.copy_(src if isinstance(src, torch.Tensor)
-                    else torch.from_numpy(np.array(src)))
+        load_jax_params(self.module, {"params": ts.params,
+                                      "state": ts.state})
         load_jax_opt_state(self.module, self.optimizer, ts.opt_state)
         self.step = int(ts.step)
 

@@ -2,7 +2,8 @@
 
 `load_jax_params(model, tree)` takes the JAX `variables` as nested
 dicts of numpy arrays (what `jax.device_get(variables)` gives; no JAX
-needed here) and fills the port's parameters by path:
+needed here) and fills the port's parameters, and its persistent
+buffers, by path. The transformers' paths:
 
     params/embed/weight                      [V, D]
     params/blocks_{i}/ln1|ln2/{scale,bias}   [D]
@@ -12,22 +13,37 @@ needed here) and fills the port's parameters by path:
     params/ln_f/{scale,bias}
     params/head/{weight,bias}                (untied head only)
 
-The port's module tree mirrors the JAX one (`blocks.{i}` is JAX's
-`blocks_{i}`), and both keep Linear weights as [in, out], so every
-tensor copies as it is. A missing or extra key, a wrong shape, or a
-non-empty collection other than `params` raises.
+The vision, NLP and detection models' (same rule, JAX's list children
+`name_{i}` being the port's `nn.ModuleList` items `name.{i}`):
+
+    params/.../conv/weight                   [kh, kw, in/groups, out] (HWIO;
+                                             3-D convs DHWIO), conv bias [out]
+    params/.../bn/{scale,bias}               [C]
+    state/.../bn/{mean,var}                  [C]   (BatchNorm running stats)
+    state/.../{count [], sum [C], sumsq [C]}       (DataNorm totals)
+    params/.../cell/{wx [D, 4H or 3H], wh, bias, wp}  (LSTM / GRU cells)
+
+The port's module tree mirrors the JAX one and both keep Linear weights
+as [in, out] and conv kernels as HWIO, so every tensor copies as it is.
+The `state` collection maps onto the model's persistent buffers (its
+`state_dict` minus its parameters) by the same path rule; non-persistent
+buffers (position tables, the hierarchical sigmoid's path tables) are
+not state. A missing or extra key (KeyError in `params`, ValueError in
+`state`), a wrong shape, or a non-empty collection other than `params`
+and `state` raises.
 
 The reverse, `to_jax_params(model)`, gives the port's parameters as
-such a tree, and `to_jax_opt_state(model, optimizer)` an optimizer's
-state in JAX's layout: {"step": int32, "slots": {name: tree}} with each
-slot tree keyed like `params` (Adam's "m" and "v");
-`load_jax_opt_state` reads that layout back into an optimizer.
+such a tree (with `state` when the model has persistent buffers), and
+`to_jax_opt_state(model, optimizer)` an optimizer's state in JAX's
+layout: {"step": int32, "slots": {name: tree}} with each slot tree
+keyed like `params` (Adam's "m" and "v"); `load_jax_opt_state` reads
+that layout back into an optimizer.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -54,41 +70,67 @@ def jax_path(name: str) -> str:
     return "params/" + param_path(name)
 
 
-def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
-    """Copy a JAX `variables` tree (numpy or tensor leaves) into
-    `model`'s parameters in place; returns `model`. Parameters are stored
-    float32, as JAX's param_dtype keeps them. A model with a
-    `check_jax_tree(tree)` method may refuse a tree first
-    (`BertEncoder` does)."""
-    check = getattr(model, "check_jax_tree", None)
-    if check is not None:       # a model's own refusal comes first
-        check(tree)
-    others = {k for k, v in tree.items() if k != "params" and v}
-    if others:
-        raise ValueError(f"collections other than params: {sorted(others)}")
-    flat = dict(flatten_with_keys({"params": tree.get("params", {})}))
-    want = {jax_path(n): p for n, p in model.named_parameters()}
+def persistent_buffers(model: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """The module's persistent buffers (its state_dict minus its
+    parameters, tied ones under every alias): what JAX keeps in its
+    `state` collection."""
+    params = {id(p) for p in model.parameters()}
+    return [(n, t) for n, t in model.state_dict(keep_vars=True).items()
+            if id(t) not in params]
+
+
+def _match(collection: str, flat: Dict, want: Dict) -> None:
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
-        raise KeyError(f"parameter trees differ: missing {missing}, "
-                       f"extra {extra}")
-    for path, param in want.items():
+        if collection == "params":
+            raise KeyError(f"parameter trees differ: missing {missing}, "
+                           f"extra {extra}")
+        raise ValueError(f"state trees differ (the model's persistent "
+                         f"buffers): missing {missing}, extra {extra}")
+    for path, t in want.items():
         arr = flat[path]
-        if tuple(arr.shape) != tuple(param.shape):
+        if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{path}: shape {tuple(arr.shape)} != "
-                             f"{tuple(param.shape)}")
+                             f"{tuple(t.shape)}")
+
+
+def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy a JAX `variables` tree (numpy or tensor leaves) into
+    `model`'s parameters and persistent buffers in place; returns
+    `model`. Parameters are stored float32, as JAX's param_dtype keeps
+    them. A model with a `check_jax_tree(tree)` method may refuse a tree
+    first (`BertEncoder` does)."""
+    check = getattr(model, "check_jax_tree", None)
+    if check is not None:       # a model's own refusal comes first
+        check(tree)
+    others = {k for k, v in tree.items() if k not in ("params", "state")
+              and v}
+    if others:
+        raise ValueError(f"collections other than params and state: "
+                         f"{sorted(others)}")
+    todo = []
+    for coll, named in (("params", list(model.named_parameters())),
+                        ("state", persistent_buffers(model))):
+        flat = dict(flatten_with_keys({coll: tree.get(coll) or {}}))
+        want = {f"{coll}/{param_path(n)}": t for n, t in named}
+        _match(coll, flat, want)
+        todo += [(t, flat[path]) for path, t in want.items()]
     with torch.no_grad():
-        for path, param in want.items():
-            param.copy_(_tensor(flat[path]))
+        for t, src in todo:
+            t.copy_(_tensor(src))
     return model
 
 
 def to_jax_params(model: nn.Module) -> Dict:
     """The model's parameters as a JAX `variables` tree of float32 numpy
-    arrays: {"params": {...}} under the JAX paths."""
-    return nest({jax_path(n): p.detach().float().cpu().numpy()
-                 for n, p in model.named_parameters()})
+    arrays: {"params": {...}} under the JAX paths, and {"state": {...}}
+    from its persistent buffers when it has any."""
+    flat = {jax_path(n): p.detach().float().cpu().numpy()
+            for n, p in model.named_parameters()}
+    flat.update({"state/" + param_path(n): b.detach().float().cpu().numpy()
+                 for n, b in persistent_buffers(model)})
+    return {"params": {}, **nest(flat)}
 
 
 def to_jax_opt_state(model: nn.Module, optimizer) -> Dict:

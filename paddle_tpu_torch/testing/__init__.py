@@ -5,19 +5,36 @@
 - Operands and weights made from a seed with numpy, shared by the
   port's tests and chip_smoke.py. They are numpy arrays, so one set of
   inputs can go through the JAX package and through the port alike.
+- `one_torch_thread`, for tests that run many small CPU convolutions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch.testing.op_test import (check_grad, check_output,
                                              numeric_grad)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run the body on one intra-op CPU thread, then restore the count.
+    Parallel test workers share the host's cores, and oneDNN's small
+    convolutions run several times slower when each worker also fans
+    out over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def ragged_case(rows: Sequence[Tuple[int, int]], h: int, hkv: int, d: int,

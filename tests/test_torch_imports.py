@@ -57,7 +57,10 @@ def test_scan_covers_the_package():
                 "testing/op_test.py", "core/module.py",
                 "ops/control_flow.py", "ops/lattice.py", "ops/extras.py",
                 "ops/detection.py", "metrics/__init__.py",
-                "metrics/metrics.py", "testing/op_cases.py"):
+                "metrics/metrics.py", "testing/op_cases.py",
+                "nn/initializers.py", "nn/fused_bn.py", "nn/rnn.py",
+                "nn/sampled.py", "models/vision.py", "models/nlp.py",
+                "models/detection.py", "testing/nn_cases.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -102,6 +105,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.ops.control_flow, paddle_tpu_torch.ops.lattice, "
             "paddle_tpu_torch.ops.extras, paddle_tpu_torch.ops.detection, "
             "paddle_tpu_torch.metrics, paddle_tpu_torch.testing.op_cases, "
+            "paddle_tpu_torch.nn, paddle_tpu_torch.nn.initializers, "
+            "paddle_tpu_torch.nn.fused_bn, paddle_tpu_torch.nn.rnn, "
+            "paddle_tpu_torch.nn.sampled, paddle_tpu_torch.models.vision, "
+            "paddle_tpu_torch.models.nlp, paddle_tpu_torch.models.detection, "
+            "paddle_tpu_torch.testing.nn_cases, "
             "paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "

@@ -2,7 +2,8 @@
 `.extras`) against tests/test_ops_extra.py, case for case, with the
 port's `check_grad`. Where the JAX test draws random inputs, the same
 inputs also go through JAX's op. That file's two sampled-softmax tests
-(NCE, hierarchical sigmoid) wait for the port of `nn.sampled`."""
+run on the port's `nn.sampled`, which is also held to JAX's on the same
+weights (NCE on the same negatives)."""
 
 import itertools
 
@@ -352,3 +353,147 @@ def test_positive_negative_pair():
         torch.tensor([0.9, 0.2, 0.8, 0.1]), torch.tensor([2.0, 1.0, 2.0, 0.0]),
         torch.tensor([0, 0, 1, 1]))
     assert int(pos) == 2 and int(neg) == 0 and int(neu) == 0
+
+
+# ------------------------------------------------------- sampled softmax
+
+def _sgd(params, lr):
+    with torch.no_grad():
+        for p in params:
+            p -= lr * p.grad
+            p.grad = None
+
+
+def test_nce_trains_and_matches_full_softmax_ranking():
+    from paddle_tpu_torch.nn.sampled import NCE
+    v, d, b = 50, 16, 64
+    rs = np.random.RandomState(1)
+    x = _t(rs.randn(b, d).astype(np.float32))
+    labels = _t(rs.randint(0, v, b))
+    torch.manual_seed(1)
+    layer = NCE(v, d, num_neg=8)
+
+    def loss():       # one fixed draw of negatives, as JAX's fixed key
+        return layer(x, labels, torch.Generator().manual_seed(7)).mean()
+    l0 = loss().item()
+    for _ in range(150):
+        loss().backward()
+        _sgd(layer.parameters(), 0.3)
+    assert loss().item() < l0
+    top = torch.argsort(-layer.full_logits(x), dim=1)[:, :20]
+    hit = (top == labels[:, None]).any(dim=1).float().mean()
+    assert float(hit) > 0.5
+
+
+def test_hierarchical_sigmoid_is_normalized_and_trains():
+    from paddle_tpu_torch.nn.sampled import HierarchicalSigmoid
+    v, d, b = 10, 8, 32
+    rs = np.random.RandomState(2)
+    x = _t(rs.randn(b, d).astype(np.float32))
+    labels = _t(rs.randint(0, v, b))
+    torch.manual_seed(2)
+    layer = HierarchicalSigmoid(v, d)
+    lp = layer.full_log_probs(x)
+    np.testing.assert_allclose(lp.exp().sum(dim=1).detach().numpy(), 1.0,
+                               rtol=1e-5)
+    l0 = layer(x, labels).mean().item()
+    for _ in range(100):
+        layer(x, labels).mean().backward()
+        _sgd(layer.parameters(), 0.5)
+    assert layer(x, labels).mean().item() < l0 * 0.5
+    nll_dense = -torch.take_along_dim(layer.full_log_probs(x),
+                                      labels[:, None], 1)[:, 0]
+    np.testing.assert_allclose(layer(x, labels).detach().numpy(),
+                               nll_dense.detach().numpy(), rtol=1e-4)
+    # the path tables are not JAX state
+    assert dict(layer.state_dict()).keys() == {"weight", "bias"}
+
+
+@pytest.mark.parametrize("noise", ["uniform", "probs"])
+def test_nce_matches_jax_on_the_same_negatives(noise, monkeypatch):
+    """JAX draws its negatives through `jax.random.randint` /
+    `jax.random.categorical`, looked up at call time: both are patched
+    to return the negatives the port is given."""
+    from paddle_tpu.nn.sampled import NCE as JaxNCE
+    from paddle_tpu_torch.models import to_jax_params
+    from paddle_tpu_torch.nn.sampled import NCE, nce_loss
+    v, d, b, k = 30, 8, 16, 5
+    rs = np.random.RandomState(3)
+    x = rs.randn(b, d).astype(np.float32)
+    labels = rs.randint(0, v, b)
+    probs = None
+    if noise == "probs":
+        probs = rs.rand(v).astype(np.float32) + 0.1
+        probs /= probs.sum()
+    torch.manual_seed(3)
+    layer = NCE(v, d, num_neg=k, probs=probs)
+    neg = layer.sample(b, torch.Generator().manual_seed(5))
+    assert neg.shape == (b, k) and int(neg.min()) >= 0 and int(neg.max()) < v
+    fixed = jnp.asarray(neg.numpy().astype(np.int32))
+    monkeypatch.setattr(jax.random, "randint", lambda *a, **kw: fixed)
+    monkeypatch.setattr(jax.random, "categorical", lambda *a, **kw: fixed)
+    jl = JaxNCE(v, num_neg=k, probs=probs)
+    params = to_jax_params(layer)["params"]
+
+    def jloss(p, xx):
+        return jnp.sum(jl.apply({"params": p}, xx, jnp.asarray(labels),
+                                rngs=jax.random.key(0)))
+    want, (jdp, jdx) = jax.value_and_grad(jloss, argnums=(0, 1))(
+        params, jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    got = nce_loss(xt, _t(labels), layer.weight, layer.bias, neg,
+                   layer.num_classes, layer.probs).sum()
+    got.backward()
+    assert got.item() == pytest.approx(float(want), rel=1e-5)
+    for g, w in ((xt.grad, jdx), (layer.weight.grad, jdp["weight"]),
+                 (layer.bias.grad, jdp["bias"])):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(w).max()))
+    np.testing.assert_allclose(
+        layer.full_logits(_t(x)).detach().numpy(),
+        x @ params["weight"].T + params["bias"], rtol=1e-5, atol=1e-5)
+    # the layer's forward is nce_loss over its draw from the generator
+    np.testing.assert_array_equal(
+        layer(_t(x), _t(labels), torch.Generator().manual_seed(5))
+        .detach().numpy(),
+        nce_loss(_t(x), _t(labels), layer.weight, layer.bias, neg, v,
+                 layer.probs).detach().numpy())
+
+
+def test_hierarchical_sigmoid_matches_jax():
+    from paddle_tpu.nn.sampled import HierarchicalSigmoid as JaxHS
+    from paddle_tpu_torch.models import to_jax_params
+    from paddle_tpu_torch.nn.sampled import HierarchicalSigmoid
+    v, d, b = 13, 6, 9
+    rs = np.random.RandomState(4)
+    x = rs.randn(b, d).astype(np.float32)
+    labels = rs.randint(0, v, b)
+    torch.manual_seed(4)
+    layer = HierarchicalSigmoid(v, d)
+    with torch.no_grad():
+        layer.bias.copy_(_t(rs.randn(v).astype(np.float32)))
+    params = to_jax_params(layer)["params"]
+    jl = JaxHS(v)
+
+    class _Full(JaxHS):
+        def forward(self, cx, xx):
+            return self.full_log_probs(cx, xx)
+
+    def jloss(p, xx):
+        return jnp.sum(jl.apply({"params": p}, xx, jnp.asarray(labels)))
+    want, (jdp, jdx) = jax.value_and_grad(jloss, argnums=(0, 1))(
+        params, jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    got = layer(xt, _t(labels)).sum()
+    got.backward()
+    assert got.item() == pytest.approx(float(want), rel=1e-5)
+    for g, w in ((xt.grad, jdx), (layer.weight.grad, jdp["weight"]),
+                 (layer.bias.grad, jdp["bias"])):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(w).max()))
+    np.testing.assert_allclose(
+        layer.full_log_probs(_t(x)).detach().numpy(),
+        np.asarray(_Full(v).apply({"params": params}, jnp.asarray(x))),
+        rtol=1e-5, atol=1e-6)
