@@ -76,7 +76,24 @@ user calls:
   (224x224, B 64, bf16, Momentum), timed and traced, beside its FLOP
   bound, with a float32 run and a small-lr bf16 run from the same
   weights as its witness; the stacked-LSTM classifier at its `stacked_lstm` spec (B 64
-  x T 100, f32, Adam).
+  x T 100, f32, Adam);
+- `quant`: every case of `paddle_tpu_torch.testing.quant_cases` (the
+  fake-quant ops, `int8_matmul`, the int8 and QAT layers; no kernel of
+  their own: the int8 GEMMs are `torch._int_mm`) on the card against the
+  CPU; ResNet-50 inference at bench.py's `_int8_compute_bench` spec
+  (224x224, B 16 and 128) in float32, bf16 and int8 frozen by
+  `freeze_int8` (dynamic, and static from one calibration batch), timed,
+  with the int8 variants' agreement and logit error against bf16; the
+  int8 LM head at [4096, 512] x [512, 32000] against bf16;
+- `export`: `save_inference_model` + `InferencePredictor` on the card:
+  ResNet-50 (B 16, f32) against the in-process module; BERT-base's
+  forward (B 8 x T 128 with lengths), whose exported graph launches
+  kernel 4 through its operator, once a layer; a CausalLM export at the
+  LM configuration with its `serve` block, served by
+  `ServeEngine.from_saved_model` with an in-memory engine's streams;
+- `book`: LeNet on the seeded synthetic MNIST through the `data`
+  readers and `device_prefetch`, 3 epochs, checkpoint restore, export
+  and `freeze_int8`, test accuracy > 0.7 in float and int8.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -91,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import gc
 import itertools
 import json
@@ -110,15 +128,17 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from paddle_tpu_torch import optim
-from paddle_tpu_torch.core import Trainer
+from paddle_tpu_torch import data, optim, quant
+from paddle_tpu_torch.core import Trainer, supervised_loss
 from paddle_tpu_torch.engine import HostKVTier, ServeEngine
 from paddle_tpu_torch.engine import engine as engine_mod
 from paddle_tpu_torch.engine.tp_worker import param_bytes
-from paddle_tpu_torch.io import CheckpointManager, verify_checkpoint
+from paddle_tpu_torch.io import (CheckpointManager, InferencePredictor,
+                                 save_inference_model, verify_checkpoint)
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
-from paddle_tpu_torch.models import (BertEncoder, CausalLM, ResNet,
+from paddle_tpu_torch.metrics import accuracy
+from paddle_tpu_torch.models import (BertEncoder, CausalLM, LeNet, ResNet,
                                      TextClassifier, Transformer,
                                      load_jax_params, to_jax_params)
 from paddle_tpu_torch.nn.layers import Conv2D, Linear
@@ -140,7 +160,9 @@ from paddle_tpu_torch.serve import replica as replica_cli
 from paddle_tpu_torch.serve.router import Router
 from paddle_tpu_torch.serve.sse import (http_get, parse_prometheus_values,
                                         stream_completion)
-from paddle_tpu_torch.testing import nn_cases, op_cases
+from paddle_tpu_torch.quant.int8_compute import Int8Linear, freeze_int8
+from paddle_tpu_torch.testing import (nn_cases, one_torch_thread, op_cases,
+                                      quant_cases)
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, bert_tree,
                                       causal_lm_tree,
@@ -4379,6 +4401,430 @@ def phase_zoo(cfg: dict, device: torch.device, card: dict) -> dict:
     return out
 
 
+# -- quant/, the inference export and data/ ------------------------------
+
+def _int8_resnet(qc: dict, device: torch.device) -> dict:
+    """ResNet-50 inference at bench.py's `_int8_compute_bench` spec: 1000
+    classes, 224x224x3 inputs from RandomState(0), float32 parameters;
+    four variants of the same weights — float32, bf16, and the bf16 model
+    frozen to int8 with dynamic activation scales and with static ones
+    from one calibration batch (the batch itself) — each timed (median of
+    `iters` calls after a warm-up, CUDA events) with its peak memory; the
+    int8 variants' top-1 agreement with bf16 and max relative logit error
+    (bench.py's two numbers), held to tests/test_int8_compute.py:84-85's
+    bars (>= 0.75, < 0.15); the weight bytes (`quantized_nbytes`)."""
+    cuda = device.type == "cuda"
+    torch.manual_seed(SEED + 80)
+    f32 = ResNet(tuple(qc["layers"]), qc["classes"], device=device)
+    bf16 = load_jax_params(
+        ResNet(tuple(qc["layers"]), qc["classes"], dtype=torch.bfloat16,
+               device=device), to_jax_params(f32))
+    rs = np.random.RandomState(0)
+    img = qc["image"]
+    out = {"layers": qc["layers"], "image": img, "classes": qc["classes"],
+           "weight_bytes": {"float32": quant.quantized_nbytes(
+               to_jax_params(f32)["params"])}}
+    for bs in qc["batches"]:
+        x = torch.from_numpy(rs.randn(bs, img, img, 3).astype(np.float32)
+                             ).to(device)
+        dyn, tree = freeze_int8(copy.deepcopy(bf16))
+        static, _ = freeze_int8(copy.deepcopy(bf16), None, [x])
+        out["weight_bytes"]["int8"] = quant.quantized_nbytes(tree["params"])
+        row = {}
+        with torch.no_grad():
+            ref = bf16(x).float()
+            for name, m in (("float32", f32), ("bfloat16", bf16),
+                            ("int8_dynamic", dyn), ("int8_static", static)):
+                start = _phase_mem(cuda)
+                ms = float(np.median(_device_ms(lambda: m(x), qc["iters"],
+                                                cuda)))
+                r = {"ms": ms, "imgs_per_s": bs / ms * 1e3,
+                     "peak_bytes": (torch.cuda.max_memory_allocated()
+                                    if cuda else None),
+                     "peak_bytes_above_start": (
+                         torch.cuda.max_memory_allocated() - start
+                         if cuda else None)}
+                if name.startswith("int8"):
+                    got = m(x).float()
+                    r["top1_agree_bf16"] = float(
+                        (got.argmax(-1) == ref.argmax(-1)).float().mean())
+                    r["max_rel_logit_err_bf16"] = nn_cases.gap(got, ref)
+                    check(r["top1_agree_bf16"] >= 0.75
+                          and r["max_rel_logit_err_bf16"] < 0.15,
+                          f"resnet50 {name} B {bs}: agreement "
+                          f"{r['top1_agree_bf16']}, relative error "
+                          f"{r['max_rel_logit_err_bf16']}")
+                row[name] = r
+            row["int8_static_vs_bf16_ms"] = (row["int8_static"]["ms"]
+                                             / row["bfloat16"]["ms"])
+            if bs == qc["batches"][-1]:
+                row["profile"] = {name: inference_profile(lambda: m(x), cuda)
+                                  for name, m in (("bfloat16", bf16),
+                                                  ("int8_static", static))}
+        out[f"b{bs}"] = row
+        del dyn, static
+    return out
+
+
+def inference_profile(fn, cuda: bool) -> Optional[dict]:
+    """One traced call of fn: the card's busy ms, of it the GEMMs'
+    (cuBLAS and CUTLASS kernels, the int8 ones included), the kernel and
+    launch counts, and the eight kernels that took longest."""
+    if not cuda:
+        return None
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = device_events(prof)
+    gemm = sum(us for name, us in by_name.items()
+               if any(k in name.lower() for k in GEMM_NAME_KEYS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {**trace_counts(prof), "gemm_ms": gemm / 1e3,
+            "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top}}
+
+
+def _int8_lm_head(qc: dict, device: torch.device) -> dict:
+    """The int8 LM head: `Int8Linear` (dynamic activation scales) against
+    a bf16 `Linear` of the same float32 weights at the shape of
+    int8_compute.py's docstring, [4096, 512] x [512, 32000]: ms (median
+    after a warm-up, CUDA events) and the int8 output's relative error
+    against bf16's."""
+    cuda = device.type == "cuda"
+    rows, d, v = qc["head"]
+    torch.manual_seed(SEED + 81)
+    head = Linear(d, v, dtype=torch.bfloat16, device=device)
+    x = torch.randn(rows, d, device=device)
+    q = Int8Linear.from_float(head)
+    with torch.no_grad():
+        ref, got = head(x), q(x)
+        ms = {name: float(np.median(_device_ms(lambda: m(x), qc["iters"],
+                                               cuda)))
+              for name, m in (("bfloat16", head), ("int8", q))}
+    return {"shape": [rows, d, v], "ms": ms,
+            "int8_vs_bf16_ms": ms["int8"] / ms["bfloat16"],
+            "max_rel_err_bf16": nn_cases.gap(got, ref)}
+
+
+def phase_quant(cfg: dict, device: torch.device, card: dict) -> dict:
+    """quant/ on the card, which brings no kernel of its own (the int8
+    GEMMs are `torch._int_mm`, as JAX's are XLA int8 dots): (a) every case
+    of `testing.quant_cases` on the card against the CPU (int8 and int32
+    equal, floats within 1e-6 of their largest element); (b) ResNet-50 int8
+    inference (`_int8_resnet`); (c) the int8 LM head (`_int8_lm_head`)."""
+    qc = cfg["quant"]
+    tag = {"device": card["kind"], "nvidia_smi": card["smi"]}
+    t_phase = time.perf_counter()
+    cases = quant_cases.sweep(device)
+    out = {"cases": cases}
+    emit({"phase": "quant", "part": "cases", "swept": len(cases),
+          "worst_float_err": max(cases.values()),
+          "float_bar": quant_cases.FLOAT_BAR, "by_case": cases, **tag})
+    out["resnet50"] = _int8_resnet(qc, device)
+    emit({"phase": "quant", "part": "resnet50", **out["resnet50"], **tag})
+    out["lm_head"] = _int8_lm_head(qc, device)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "quant", "part": "lm_head", **out["lm_head"],
+          "quant_seconds": out["seconds"], **tag})
+    return out
+
+
+class BertHidden(torch.nn.Module):
+    """`BertEncoder`'s hidden states over (tokens, lengths): the exported
+    entry point."""
+
+    def __init__(self, bert: BertEncoder):
+        super().__init__()
+        self.bert = bert
+
+    def forward(self, tokens, lengths):
+        return self.bert(tokens, lengths=lengths)
+
+
+def _graph_ops(program) -> Dict[str, int]:
+    """Calls in an exported program's graph: of kernel 4's operator, and
+    of any softmax (a dense attention would hold one)."""
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    return {"flash_fwd_op": sum("paddle_tpu_torch.flash_fwd" in t
+                                for t in targets),
+            "softmax": sum("softmax" in t for t in targets)}
+
+
+def _export_resnet(ec: dict, device: torch.device, root: Path) -> dict:
+    torch.manual_seed(SEED + 82)
+    model = ResNet(tuple(ec["resnet_layers"]), ec["classes"], device=device)
+    x = np.random.RandomState(1).randn(
+        ec["resnet_batch"], ec["image"], ec["image"], 3).astype(np.float32)
+    t0 = time.perf_counter()
+    save_inference_model(str(root / "resnet"), model, None, [x],
+                         input_names=["image"])
+    t1 = time.perf_counter()
+    pred = InferencePredictor(str(root / "resnet"), device=device)
+    t2 = time.perf_counter()
+    got = torch.from_numpy(pred.run({"image": x})[0])
+    with torch.no_grad():
+        want = model(torch.from_numpy(x).to(device)).cpu()
+    err = nn_cases.gap(got, want)
+    check(err <= 1e-5, f"exported ResNet vs in-process: {err} > 1e-5")
+    return {"layers": ec["resnet_layers"], "batch": ec["resnet_batch"],
+            "image": ec["image"], "max_rel_err": err,
+            "save_s": t1 - t0,
+            "load_s": t2 - t1,
+            "pt2_bytes": os.path.getsize(root / "resnet" / "model.pt2")}
+
+
+def _flash_route_us(bc: dict, device: torch.device, calls: int = 100,
+                    rounds: int = 5) -> Dict[str, float]:
+    """Host us a call to enqueue kernel 4 at the exported BERT's shape
+    (float32, segment ids), by three routes, interleaved over `rounds` of
+    `calls` calls each, the median round: `flash_fwd` (the ctypes launch
+    alone), `flash_fwd_op` (through the `torch.library` dispatcher) and
+    `flash_attention` (the wrapper every model calls, through `FlashCore`
+    and the operator), all under `no_grad`. Launch counts are reset by
+    the caller's next counted run."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 85)
+    b, t = bc["check_batch"], bc["seq"]
+    h, d = bc["num_heads"], bc["model_dim"] // bc["num_heads"]
+    q, k, v = (torch.randn(b, t, h, d, generator=g).to(device)
+               for _ in range(3))
+    seg = (torch.arange(t)[None, :] < torch.tensor(
+        [t - 8 * i for i in range(b)])[:, None]).to(torch.int32).to(device)
+    scale = 1.0 / d ** 0.5
+    routes = {
+        "flash_fwd": lambda: flash.flash_fwd(q, k, v, seg, seg, None,
+                                             scale=scale),
+        "flash_fwd_op": lambda: flash.flash_fwd_op(q, k, v, seg, seg, None,
+                                                   scale, False, None, 0.0),
+        "flash_attention": lambda: flash.flash_attention(
+            q, k, v, scale, segment_ids=seg)}
+    times: Dict[str, List[float]] = {name: [] for name in routes}
+    with torch.no_grad():
+        for fn in routes.values():
+            fn()
+        torch.cuda.synchronize(device)
+        for _ in range(rounds):
+            for name, fn in routes.items():
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                times[name].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize(device)
+    return {name: float(np.median(ts)) for name, ts in times.items()}
+
+
+def _export_bert(cfg: dict, device: torch.device, root: Path) -> dict:
+    cuda = device.type == "cuda"
+    bc = cfg["bert"]
+    b = bc["check_batch"]
+    model = _bert_model(bc, bc["num_layers"], torch.float32, device)
+    tokens, _, lengths, _ = _bert_batch(dict(bc, batch=b), device,
+                                        SEED + 83)
+    entry = BertHidden(model)
+    t0 = time.perf_counter()
+    save_inference_model(str(root / "bert"), entry, None,
+                         [tokens.cpu().numpy(), lengths.cpu().numpy()],
+                         input_names=["tokens", "lengths"])
+    t1 = time.perf_counter()
+    pred = InferencePredictor(str(root / "bert"), device=device)
+    t2 = time.perf_counter()
+    graph = _graph_ops(pred.program)
+    feed = {"tokens": tokens.cpu().numpy(), "lengths": lengths.cpu().numpy()}
+    pred.run(feed)                      # warm-up, uncounted
+    plain: Dict[str, float] = {}        # host ms of any plain call made
+    with host_ms(plain, plain_flash=(flash, "flash_fwd_reference"),
+                 plain_attention=(attention, "reference_attention")):
+        _reset_launches()
+        got = torch.from_numpy(pred.run(feed)[0])
+        launches = _launches()
+    with torch.no_grad():
+        want = entry(tokens, lengths).cpu()
+    err = nn_cases.gap(got, want)
+    check(err <= 1e-5, f"exported BERT vs in-process: {err} > 1e-5")
+    layers = bc["num_layers"]
+    if cuda:
+        check(graph["flash_fwd_op"] == layers and graph["softmax"] == 0,
+              f"exported BERT graph: {graph}, want {layers} flash ops and "
+              "no softmax")
+        want_launches = dict.fromkeys(launches, 0)
+        want_launches["flash_fwd"] = layers
+        check(launches == want_launches,
+              f"exported BERT launches {launches} != {want_launches}")
+        check(not plain, f"exported BERT reached a plain version: "
+                         f"{sorted(plain)}")
+    return {"batch": b, "seq": bc["seq"], "layers": layers,
+            "dtype": "float32", "save_s": t1 - t0, "load_s": t2 - t1,
+            "graph_ops": graph,
+            "flash_route_host_us": (_flash_route_us(bc, device) if cuda
+                                    else None),
+            "kernel_launches": launches,
+            "plain_versions_called": sorted(plain),
+            "max_rel_err": err,
+            "pt2_bytes": os.path.getsize(root / "bert" / "model.pt2")}
+
+
+def _export_lm(cfg: dict, tree: dict, device: torch.device,
+               root: Path) -> dict:
+    ec = cfg["export"]
+    model = load_jax_params(CausalLM(cfg["vocab"], **cfg["lm"],
+                                     max_len=cfg["max_len"], device=device),
+                            tree)
+    t0 = time.perf_counter()
+    save_inference_model(
+        str(root / "lm"), model, None,
+        [np.zeros((1, ec["lm_example"]), np.int32)], input_names=["tokens"],
+        serve_meta=engine_mod.serve_metadata(model))
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 84)
+    prompts = [rng.integers(1, cfg["vocab"], n).tolist()
+               for n in ec["lm_prompts"]]
+    saved = ServeEngine.from_saved_model(str(root / "lm"),
+                                         **_engine_kw(cfg, device))
+    got = saved.generate(prompts, max_new_tokens=ec["lm_new"])
+    del saved
+    t2 = time.perf_counter()
+    mem = ServeEngine(model, **_engine_kw(cfg, device))
+    want = mem.generate(prompts, max_new_tokens=ec["lm_new"])
+    del mem
+    t3 = time.perf_counter()
+    check(got == want, "CausalLM export served by from_saved_model: "
+                       "streams differ from the in-memory engine's")
+    return {"prompts": len(prompts), "prompt_lens": ec["lm_prompts"],
+            "new_tokens": ec["lm_new"], "dtype": "float32",
+            "streams_equal": True, "save_s": t1 - t0,
+            "from_saved_model_and_serve_s": t2 - t1,
+            "in_memory_engine_and_serve_s": t3 - t2,
+            "signature": json.load(open(root / "lm" / "signature.json"))}
+
+
+def phase_export(cfg: dict, tree: dict, device: torch.device,
+                 card: dict) -> dict:
+    """io/inference on the card: (a) ResNet exported by
+    `save_inference_model` and run by `InferencePredictor`, equal to the
+    in-process module within 1e-5 of its largest logit; (b) BERT-base's
+    forward (phase `bert`'s configuration, float32, with lengths),
+    exported on the card: its graph holds kernel 4's operator once a
+    layer and no softmax, and one predictor call launches kernel 4 once
+    a layer and nothing reaches a plain version; (c) a CausalLM export
+    at LM_BASE with `serve_meta`, served by `from_saved_model`, its
+    greedy float32 streams equal to an engine over the same weights in
+    memory."""
+    root = EXPORT_DIR.parent / "chip_smoke_inference"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tag = {"device": card["kind"], "nvidia_smi": card["smi"]}
+    t_phase = time.perf_counter()
+    try:
+        out = {"resnet": _export_resnet(cfg["export"], device, root)}
+        emit({"phase": "export", "part": "resnet", **out["resnet"], **tag})
+        out["bert"] = _export_bert(cfg, device, root)
+        emit({"phase": "export", "part": "bert", **out["bert"], **tag})
+        out["lm"] = _export_lm(cfg, tree, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "export", "part": "lm", **out["lm"],
+          "export_seconds": out["seconds"], **tag})
+    return out
+
+
+def phase_book(cfg: dict, device: torch.device, card: dict) -> dict:
+    """The recognize-digits book chapter end to end
+    (tests/test_book_mnist.py): LeNet on `datasets.mnist_train` (the
+    seeded synthetic set), batches of 64 from `data.batch(data.shuffle(
+    ..., buf_size=512, seed=0))` through `device_prefetch` onto the card,
+    Adam 1e-3 for 3 epochs with a `CheckpointManager` save each epoch;
+    test accuracy > 0.7; a restore into a new trainer gives the same eval
+    loss; the export's predictor gives the module's logits; `freeze_int8`
+    calibrated on two training batches keeps test accuracy > 0.7. The
+    host ms a batch spent in the reader pipeline beside the step ms."""
+    bk = cfg["book"]
+    tag = {"device": card["kind"], "nvidia_smi": card["smi"]}
+    t_phase = time.perf_counter()
+    root = EXPORT_DIR.parent / "chip_smoke_book"
+    shutil.rmtree(root, ignore_errors=True)
+    train_reader = data.batch(data.shuffle(
+        data.datasets.mnist_train(bk["train"]), buf_size=512, seed=0), 64)
+    test_reader = data.batch(data.datasets.mnist_test(bk["test"]), 64)
+    loss_fn = supervised_loss(softmax_with_cross_entropy,
+                              metrics={"acc": accuracy})
+
+    def build():
+        model = LeNet(10, device=device)
+        return Trainer(model, Adam(model.parameters(), 1e-3), loss_fn,
+                       seed=0)
+    torch.manual_seed(SEED + 85)
+    trainer = build()
+    mgr = CheckpointManager(str(root / "ckpts"), max_to_keep=2)
+    losses, reader_ms, step_ms = [], [], []
+    try:
+        for _ in range(bk["epochs"]):
+            batches = data.device_prefetch(train_reader(), size=2,
+                                           device=device)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                t1 = time.perf_counter()
+                if batch is None:
+                    break
+                losses.append(float(trainer.train_step(batch)["loss"]))
+                reader_ms.append((t1 - t0) * 1e3)
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            mgr.save(trainer.state(), step=trainer.step)
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        check(first > last * 1.5, f"book: no learning, first 10 {first}, "
+                                  f"last 10 {last}")
+        test = list(data.device_prefetch(test_reader(), device=device))
+
+        def test_accuracy(model) -> float:
+            right = n = 0
+            with torch.no_grad():
+                for x, y in test:
+                    right += int((model(x).argmax(-1) == y).sum())
+                    n += len(y)
+            return right / n
+        trainer.module.eval()
+        acc = test_accuracy(trainer.module)
+        check(acc > 0.7, f"book: test accuracy {acc} <= 0.7")
+        restored = build()
+        ts, step = mgr.restore_latest(target=restored.state())
+        restored.load_state(ts)
+        loss_a = float(trainer.eval_step(test[0])["loss"])
+        loss_b = float(restored.eval_step(test[0])["loss"])
+        check(step == trainer.step
+              and abs(loss_a - loss_b) <= 1e-5 * abs(loss_a),
+              f"book: restored step {step} loss {loss_b} != {loss_a}")
+        x = test[0][0][:8].cpu().numpy()
+        save_inference_model(str(root / "infer"), trainer.module, None, [x],
+                             input_names=["image"])
+        logits = InferencePredictor(str(root / "infer"),
+                                    device=device).run({"image": x})[0]
+        with torch.no_grad():
+            want = trainer.module(test[0][0][:8]).cpu()
+        export_err = nn_cases.gap(torch.from_numpy(logits), want)
+        check(export_err <= 1e-4, f"book: export error {export_err}")
+        calib = [b[0] for b in itertools.islice(
+            data.device_prefetch(train_reader(), device=device), 2)]
+        qmodel, _ = freeze_int8(copy.deepcopy(trainer.module), None, calib)
+        acc8 = test_accuracy(qmodel)
+        check(acc8 > 0.7, f"book: int8 test accuracy {acc8} <= 0.7")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"train": bk["train"], "test": bk["test"], "epochs": bk["epochs"],
+           "steps": len(losses), "first_losses": losses[:3],
+           "last_losses": losses[-3:], "test_accuracy": acc,
+           "int8_test_accuracy": acc8, "restored_eval_loss": loss_b,
+           "export_max_rel_err": export_err,
+           "reader_ms_median": float(np.median(reader_ms)),
+           "reader_ms_max": float(np.max(reader_ms)),
+           "step_ms_median": float(np.median(step_ms)),
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "book", **out, **tag})
+    return out
+
+
 def full_config() -> dict:
     return dict(
         lm=LM_BASE, vocab=LM_VOCAB, max_len=LM_MAX_LEN, dtype=torch.bfloat16,
@@ -4483,7 +4929,19 @@ def full_config() -> dict:
                              classes=1000, dtype=torch.bfloat16, warmup=2,
                              steps=8),
                  lstm=dict(vocab=10000, embed=128, hidden=512, layers=2,
-                           batch=64, seq=100, steps=5)))
+                           batch=64, seq=100, steps=5)),
+        # quant: bench.py's _int8_compute_bench (resnet50, 1000 classes,
+        # 224x224x3, B 16 and 128, one calibration batch); the LM head at
+        # int8_compute.py's docstring shape [4096, 512] x [512, 32000]
+        quant=dict(layers=(3, 4, 6, 3), classes=1000, image=224,
+                   batches=(16, 128), iters=5, head=(4096, 512, 32000)),
+        # export: ResNet-50 at B 16 f32; BERT at the bert phase's widths,
+        # B 8 x T 128; the LM at LM_BASE, four prompts, 16 new tokens
+        export=dict(resnet_layers=(3, 4, 6, 3), classes=1000, image=224,
+                    resnet_batch=16, lm_example=16,
+                    lm_prompts=(40, 100, 7, 64), lm_new=16),
+        # book: tests/test_book_mnist.py's LeNet run
+        book=dict(train=2048, test=512, epochs=3))
 
 
 def tiny_config() -> dict:
@@ -4538,7 +4996,13 @@ def tiny_config() -> dict:
                              classes=10, dtype=torch.float32, warmup=1,
                              steps=2),
                  lstm=dict(vocab=50, embed=8, hidden=16, layers=2, batch=2,
-                           seq=8, steps=2)))
+                           seq=8, steps=2)),
+        quant=dict(layers=(1, 1, 1, 1), classes=10, image=32,
+                   batches=(4, 8), iters=2, head=(32, 16, 96)),
+        export=dict(resnet_layers=(1, 1, 1, 1), classes=10, image=32,
+                    resnet_batch=2, lm_example=8, lm_prompts=(5, 9),
+                    lm_new=4),
+        book=dict(train=2048, test=512, epochs=3))
 
 
 @contextlib.contextmanager
@@ -4573,8 +5037,11 @@ def main(argv=None) -> int:
     torch.manual_seed(SEED)
 
     # the event streams print a JSON line per event (the serve stream one
-    # a step); keep stdout to phases (the phases read events by taps)
-    with quiet_streams("serve", "resilience", "obs"):
+    # a step); keep stdout to phases (the phases read events by taps). The
+    # rehearsal runs on one CPU thread: beside other processes (a parallel
+    # test run) torch's pool of a thread a core oversubscribes the host
+    threads = contextlib.nullcontext() if cuda else one_torch_thread()
+    with quiet_streams("serve", "resilience", "obs"), threads:
         card = phase_device(cuda)
         tensor_cores = phase_build(cfg, cuda)
         errs = phase_kernel_vs_plain(cfg, device)
@@ -4607,6 +5074,9 @@ def main(argv=None) -> int:
         seq2seq = phase_seq2seq(cfg, device, card)
         phase_ops_sweep(cfg, device, card)
         phase_zoo(cfg, device, card)
+        phase_quant(cfg, device, card)
+        export = phase_export(cfg, tree, device, card)
+        phase_book(cfg, device, card)
 
         rows = []
         for name, (source, replaces, _) in KERNEL_ROWS.items():
@@ -4632,6 +5102,8 @@ def main(argv=None) -> int:
                 rows[-1]["launches_tp_per_rank"] = [
                     r[name] for r in tp["int8_tier"]["rank_launches"]]
             if name == "flash_fwd":
+                rows[-1]["launches_export"] = \
+                    export["bert"]["kernel_launches"][name]
                 rows[-1]["launches_generate"] = {
                     dt: r["kernel_launches"][name]
                     for dt, r in generate.items()}

@@ -32,10 +32,14 @@ Three kernels, each with two implementations of one contract:
   In bf16 all three run on the tensor cores (`wgmma` + TMA,
   kernels/csrc/flash_tc.cuh); in f32 on the CUDA cores.
 
-`FlashCore` (for `_flash_core`, :551-578) is the autograd Function:
-its forward launches kernel 4 and saves lse, its backward kernels 5 and
-6. `flash_attention` is the wrapper. Unlike the JAX wrapper it does not
-pad T to a block multiple: the kernels bound-check their tails.
+`flash_fwd_op` is `flash_fwd` registered as the operator
+`paddle_tpu_torch::flash_fwd` (with a fake for tracing), so that
+`torch.export` records kernel 4 in an exported program
+(io/inference.py). `FlashCore` (for `_flash_core`, :551-578) is the
+autograd Function: its forward launches kernel 4 through the operator
+and saves lse, its backward kernels 5 and 6. `flash_attention` is the
+wrapper. Unlike the JAX wrapper it does not pad T to a block multiple:
+the kernels bound-check their tails.
 """
 
 from __future__ import annotations
@@ -425,19 +429,42 @@ flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
-# -- autograd and the wrapper ------------------------------------------------
+# -- the forward as an operator, autograd and the wrapper -------------------
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor],
+                 seed: Optional[torch.Tensor], scale: float, causal: bool,
+                 kv_len: Optional[int], dropout_rate: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_fwd` as the operator `paddle_tpu_torch::flash_fwd`, so that
+    `torch.export` records the call (a ctypes launch cannot be traced on
+    fake tensors) and an exported program launches kernel 4 when it runs
+    on the card. `flash_fwd` is looked up in this module at call time."""
+    return flash_fwd(q, k, v, q_seg, kv_seg, seed, scale=scale,
+                     causal=causal, kv_len=kv_len, dropout_rate=dropout_rate)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_seg, kv_seg, seed, scale, causal, kv_len,
+                    dropout_rate):
+    b, t_q, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, t_q), dtype=torch.float32))
+
 
 class FlashCore(torch.autograd.Function):
-    """`_flash_core` (flash.py:551-578): the forward runs kernel 4 and
-    saves lse; the backward runs kernels 5 and 6. The kernels are looked
-    up in this module at call time."""
+    """`_flash_core` (flash.py:551-578): the forward runs kernel 4
+    (through `flash_fwd_op`) and saves lse; the backward runs kernels 5
+    and 6. The kernels are looked up in this module at call time."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, seed, scale, causal, kv_len,
                 dropout_rate):
         cfg = dict(scale=scale, causal=causal, kv_len=kv_len,
                    dropout_rate=dropout_rate)
-        o, lse = flash_fwd(q, k, v, q_seg, kv_seg, seed, **cfg)
+        o, lse = flash_fwd_op(q, k, v, q_seg, kv_seg, seed, scale, causal,
+                              kv_len, dropout_rate)
         ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg, seed)
         ctx.cfg = cfg
         return o

@@ -32,6 +32,10 @@ not state. A missing or extra key (KeyError in `params`, ValueError in
 `state`), a wrong shape, or a non-empty collection other than `params`
 and `state` raises.
 
+A frozen int8 layer (quant/int8_compute.py) carries its int8 `weight`
+and f32 `w_scale` under `params` and, once calibrated, its `act_scale`
+under `state`, both ways.
+
 The reverse, `to_jax_params(model)`, gives the port's parameters as
 such a tree (with `state` when the model has persistent buffers), and
 `to_jax_opt_state(model, optimizer)` an optimizer's state in JAX's
@@ -52,7 +56,7 @@ from torch import nn
 from paddle_tpu_torch.utils.tree import flatten_with_keys, nest
 
 
-def _tensor(x) -> torch.Tensor:
+def to_tensor(x) -> torch.Tensor:
     """A tensor as it is; numpy (read-only ones too) copied to one."""
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
 
@@ -93,6 +97,10 @@ def _match(collection: str, flat: Dict, want: Dict) -> None:
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{path}: shape {tuple(arr.shape)} != "
                              f"{tuple(t.shape)}")
+        if not t.is_floating_point() and to_tensor(arr).is_floating_point():
+            raise ValueError(f"{path}: a floating leaf for the model's "
+                             f"{t.dtype} tensor (an int8 layer's weight "
+                             "loads only from int8)")
 
 
 def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
@@ -118,17 +126,24 @@ def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
         todo += [(t, flat[path]) for path, t in want.items()]
     with torch.no_grad():
         for t, src in todo:
-            t.copy_(_tensor(src))
+            t.copy_(to_tensor(src))
     return model
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A parameter or buffer as numpy: float32 for a floating tensor,
+    its own dtype otherwise (a frozen layer's int8 weight)."""
+    t = t.detach()
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
 def to_jax_params(model: nn.Module) -> Dict:
-    """The model's parameters as a JAX `variables` tree of float32 numpy
-    arrays: {"params": {...}} under the JAX paths, and {"state": {...}}
-    from its persistent buffers when it has any."""
-    flat = {jax_path(n): p.detach().float().cpu().numpy()
-            for n, p in model.named_parameters()}
-    flat.update({"state/" + param_path(n): b.detach().float().cpu().numpy()
+    """The model's parameters as a JAX `variables` tree of numpy arrays
+    (float32, or a frozen int8 layer's int8 `weight`): {"params": {...}}
+    under the JAX paths, and {"state": {...}} from its persistent
+    buffers when it has any."""
+    flat = {jax_path(n): _host(p) for n, p in model.named_parameters()}
+    flat.update({"state/" + param_path(n): _host(b)
                  for n, b in persistent_buffers(model)})
     return {"params": {}, **nest(flat)}
 
@@ -166,7 +181,7 @@ def load_jax_opt_state(model: nn.Module, optimizer,
                 raise KeyError(f"slot {slot}: parameter paths differ")
             for n, p in named.items():
                 dst = optimizer.slots_of(p)[slot]
-                src = _tensor(flat[jax_path(n)])
+                src = to_tensor(flat[jax_path(n)])
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(f"slot {slot} {jax_path(n)}: shape "
                                      f"{tuple(src.shape)} != "

@@ -12,12 +12,13 @@ the host.
 
 `ssd_match`'s forced matches are JAX's `.at[].max`:
 `scatter_reduce(reduce="amax", include_self=True)`; its argmaxes take
-the first maximum, as `jnp.argmax` does.
+the first maximum, as `jnp.argmax` does. `SSDLite.forward` takes a
+`generator` and ignores it, as every model of the zoo does.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,7 +102,8 @@ class SSDLite(nn.Module):
         return torch.cat(boxes, dim=0), torch.tensor(
             [0.1, 0.1, 0.2, 0.2], dtype=torch.float32, device=self.device)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         b = x.shape[0]
         c = self.num_classes + 1
         f1 = self.b2(self.b1(self.stem(x)))

@@ -8,11 +8,13 @@ Module names are JAX's (`lstm.rnns.0.cell.wx` is JAX's
 Linear and cell takes its input width, which JAX infers. JAX's
 `lax.scan` over the decoder's target steps is a Python loop of batched
 ops here. Models default to the CUDA card and start in eval mode.
+Each `forward` takes a `generator` and ignores it (no model here has
+dropout), as every model of the zoo does.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -39,7 +41,9 @@ class Word2Vec(nn.Module):
         self.head = Linear(hidden, vocab, device=device)
         self.eval()
 
-    def forward(self, context_tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, context_tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """context_tokens [B, context] -> logits [B, V]."""
         e = self.embed(context_tokens)
         h = F.relu(self.fc(e.reshape(e.shape[0], -1)))
@@ -64,7 +68,9 @@ class TextClassifier(nn.Module):
         self.head = Linear(hidden, num_classes, device=device)
         self.eval()
 
-    def forward(self, tokens: torch.Tensor, lengths=None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, lengths=None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         y, _ = self.lstm(self.embed(tokens), lengths)
         if lengths is not None:
             pooled = sequence_pool(y, lengths, self.pool)
@@ -105,7 +111,9 @@ class Seq2Seq(nn.Module):
         return torch.einsum("bt,btd->bd", w, memory)
 
     def forward(self, src_tokens: torch.Tensor, trg_tokens: torch.Tensor,
-                src_lengths=None) -> torch.Tensor:
+                src_lengths=None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         memory, h = self.encoder(self.src_embed(src_tokens), src_lengths)
         ts = src_tokens.shape[1]
         maskf = (sequence_mask(torch.as_tensor(src_lengths,
@@ -152,7 +160,9 @@ class DeepFM(nn.Module):
         self.eval()
 
     def forward(self, dense: torch.Tensor,
-                sparse_ids: torch.Tensor) -> torch.Tensor:
+                sparse_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """dense [B, Dd], sparse_ids [B, F] -> logit [B]."""
         offsets = (torch.arange(self.num_fields, device=sparse_ids.device)
                    * self.vocab_per_field)[None]
@@ -185,7 +195,9 @@ class Recommender(nn.Module):
         self.eval()
 
     def forward(self, user_ids: torch.Tensor,
-                item_ids: torch.Tensor) -> torch.Tensor:
+                item_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         u = torch.tanh(self.user_fc(self.user_embed(user_ids)))
         i = torch.tanh(self.item_fc(self.item_embed(item_ids)))
         return F.cos_sim(u, i) * 5.0

@@ -15,7 +15,9 @@ use, are made from the block's known width, under the same names.
 
 `dtype` is the compute dtype (parameters stay float32). Models default
 to the CUDA card (`device.resolve_device`) and start in eval mode;
-`Dropout` draws from the `generator` that `forward` takes.
+every model's `forward` takes a `generator`, from which `Dropout`
+draws; the models without dropout ignore it, so that one training loop
+(`core.supervised_loss`) calls every model alike.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ class MLP(nn.Module):
                            device=device)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
         for fc in self.fcs:
             x = F.relu(fc(x))
@@ -88,7 +92,9 @@ class LeNet(nn.Module):
         self.fc2 = Linear(500, num_classes, dtype=dtype, device=device)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = max_pool2d(F.relu(self.conv1(x)), 2, 2)
         x = max_pool2d(F.relu(self.conv2(x)), 2, 2)
         x = x.reshape(x.shape[0], -1)
@@ -269,7 +275,9 @@ class ResNet(nn.Module):
         self.head = Linear(width, num_classes, **kw)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if self.s2d_stem:
             from paddle_tpu_torch.ops.extras import space_to_depth
             if x.shape[1] % 2 or x.shape[2] % 2:
@@ -353,7 +361,9 @@ class SEResNeXt(nn.Module):
         self.head = Linear(width, num_classes, **kw)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = max_pool2d(self.stem(x), 3, 2, padding="SAME")
         for block in self.blocks:
             x = block(x)

@@ -11,14 +11,12 @@
 from __future__ import annotations
 
 import contextlib
-import json
-import os
-import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.io.inference import write_export
 from paddle_tpu_torch.testing.op_test import (check_grad, check_output,
                                              numeric_grad)
 
@@ -35,6 +33,28 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def assert_same_bits(got, want, where: str = "out") -> None:
+    """Assert that two nested results (dicts, tuples, lists, arrays,
+    tensors, scalars, strings) have the same structure, and that each
+    leaf has the same dtype, shape and bytes. `want` may hold any array
+    that `np.asarray` reads, so a JAX package's result fits as it is."""
+    if isinstance(got, dict):
+        assert isinstance(want, dict) and sorted(got) == sorted(want), where
+        for k in got:
+            assert_same_bits(got[k], want[k], f"{where}[{k!r}]")
+    elif isinstance(got, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want), where
+        for i, (u, v) in enumerate(zip(got, want)):
+            assert_same_bits(u, v, f"{where}[{i}]")
+    else:
+        if isinstance(got, torch.Tensor):
+            got = got.detach().cpu().numpy()
+        u, v = np.asarray(got), np.asarray(want)
+        assert (u.dtype, u.shape) == (v.dtype, v.shape), \
+            (where, u.dtype, u.shape, v.dtype, v.shape)
+        assert u.tobytes() == v.tobytes(), where
 
 
 def ragged_case(rows: Sequence[Tuple[int, int]], h: int, hkv: int, d: int,
@@ -356,45 +376,13 @@ def pack_prompts(prompts: List[List[int]], bs: int, tq: int,
 
 
 def write_serving_export(path: str, tree: Dict, serve_meta: Dict) -> str:
-    """Write the part of a JAX `save_inference_model` directory that
-    `ServeEngine.from_saved_model` reads, with numpy only:
-    `signature.json` carrying the `serve` block, and the `params`
-    checkpoint in format version 2 (manifest.json with per-file CRC32s,
-    shards-p0.npz, shard_index-p0.json; paddle_tpu/io/checkpoint.py
-    :18-33). Every leaf is one whole piece. Returns `path`."""
-    flat: List[Tuple[str, np.ndarray]] = []
-
-    def walk(node, prefix):
-        for key in sorted(node):
-            name = f"{prefix}/{key}" if prefix else str(key)
-            if isinstance(node[key], dict):
-                walk(node[key], name)
-            else:
-                flat.append((name, np.asarray(node[key])))
-    walk(tree, "")
-    params = os.path.join(path, "params")
-    os.makedirs(params, exist_ok=True)
-    slots = {f"a{i}_s{i}": arr for i, (_, arr) in enumerate(flat)}
-    np.savez(os.path.join(params, "shards-p0.npz"), **slots)
-    index = [{"leaf": i, "slot": f"a{i}_s{i}",
-              "index": [[0, d] for d in arr.shape]}
-             for i, (_, arr) in enumerate(flat)]
-    with open(os.path.join(params, "shard_index-p0.json"), "w") as f:
-        json.dump(index, f)
-    files = {}
-    for name in ("shard_index-p0.json", "shards-p0.npz"):
-        with open(os.path.join(params, name), "rb") as f:
-            data = f.read()
-        files[name] = {"crc32": zlib.crc32(data), "bytes": len(data)}
-    manifest = {"version": 2, "step": None, "metadata": {},
-                "process_count": 1, "files": files,
-                "leaves": [{"key": k, "shape": list(a.shape),
-                            "dtype": str(a.dtype)} for k, a in flat]}
-    with open(os.path.join(params, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    with open(os.path.join(path, "signature.json"), "w") as f:
-        json.dump({"version": 1, "serve": dict(serve_meta)}, f, indent=1)
-    return path
+    """Write the part of a `save_inference_model` directory that
+    `ServeEngine.from_saved_model` reads, from a tree alone (no model to
+    export): `signature.json` carrying the `serve` block, and the
+    `params` checkpoint (format version 2, every leaf whole), through
+    io/inference.py's writer. Returns `path`."""
+    return write_export(path, tree, {"version": 1,
+                                     "serve": dict(serve_meta)})
 
 
 FLASH_ARGS = ("q", "k", "v", "do")

@@ -1,8 +1,8 @@
 """The port's control flow (`paddle_tpu_torch.ops.control_flow`) against
 tests/test_control_flow.py's op tests, case for case, and its toy
 dynamic-decode tests through the port's `beam_search`, held against
-JAX's results on the same inputs. The four bucketing tests of that file
-wait for the port of `data.bucketing`."""
+JAX's results on the same inputs, and its four bucketing tests on the
+port's `data.bucketing`, each against JAX's on the same samples."""
 
 import jax
 import jax.numpy as jnp
@@ -180,3 +180,72 @@ def test_control_flow_under_jax_and_port_agree():
     want = [float(jax.jit(lambda x, i: prog(jcf, x, i))(2.0, i))
             for i in (0, 1, 5)]
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# ---------------------------------------------------------------- bucketing
+# the port's data/bucketing.py, a pure numpy copy of the JAX package's:
+# each test runs both on the same samples, and the batches must be equal
+# bit for bit before the JAX tests' property checks
+
+def _both_buckets(run):
+    """`run(bucketing module)` through the port's and JAX's; returns the
+    port's result after holding it equal to JAX's."""
+    from paddle_tpu.data import bucketing as jax_bucketing
+    from paddle_tpu_torch.data import bucketing
+    from paddle_tpu_torch.testing import assert_same_bits
+    got = run(bucketing)
+    assert_same_bits(got, run(jax_bucketing))
+    return got
+
+
+def test_bucket_boundaries():
+    bs = _both_buckets(lambda b: b.bucket_boundaries(100, min_len=8,
+                                                     growth=2.0))
+    assert bs[0] == 8 and bs[-1] == 100
+    assert all(b2 > b1 for b1, b2 in zip(bs, bs[1:]))
+
+
+def test_bucket_by_length():
+    rs = np.random.RandomState(0)
+    samples = [(np.arange(n), int(n % 2)) for n in
+               rs.randint(1, 33, size=50)]
+
+    def reader():
+        return iter(samples)
+
+    batches = _both_buckets(lambda b: list(b.bucket_by_length(
+        reader, [8, 16, 32], batch_size=4)()))
+    total = 0
+    for toks, labels, lens in batches:
+        assert toks.shape[1] in (8, 16, 32)
+        assert toks.shape[0] == labels.shape[0] == lens.shape[0] <= 4
+        # padding correctness: row i has lens[i] real tokens then zeros
+        for i in range(toks.shape[0]):
+            np.testing.assert_array_equal(toks[i, :lens[i]],
+                                          np.arange(lens[i]))
+            assert np.all(toks[i, lens[i]:] == 0)
+        total += toks.shape[0]
+    assert total == 50  # flush emits leftovers
+
+
+def test_bucket_fixed_fields_not_padded():
+    """Fixed-size side fields (dense features) must keep their shape; only
+    length-shaped fields pad to the bucket edge."""
+    rs = np.random.RandomState(0)
+    samples = [(np.arange(n), rs.randn(4).astype(np.float32), int(n % 2))
+               for n in [3, 5, 7, 2, 9, 11]]
+    batches = _both_buckets(lambda b: list(b.bucket_by_length(
+        lambda: iter(samples), [8, 16], batch_size=3)()))
+    for toks, dense, label, lens in batches:
+        assert dense.shape[1] == 4          # NOT padded to the bucket edge
+        assert toks.shape[1] in (8, 16)
+        assert label.ndim == 1
+
+
+def test_bucket_shapes_are_reused():
+    samples = [(np.arange(n),) for n in [3, 5, 7, 2, 9, 11, 15, 4]]
+    batches = _both_buckets(lambda b: list(b.bucket_by_length(
+        lambda: iter(samples), [8, 16], batch_size=2,
+        with_lengths=False)()))
+    shapes = {b[0].shape[1] for b in batches}
+    assert shapes <= {8, 16}  # only two compiled shapes ever

@@ -1,9 +1,9 @@
 """The port's SSD-lite (`models/detection.py`) against
 tests/test_detection_model.py and the JAX model on the same weights.
 
-`test_ssd_match_exact_prior` is mirrored. JAX's
-`test_ssd_trains_to_above_chance_map` reads the voc2012 reader of
-`data.datasets`, whose port is ROADMAP item 9e; it waits for it.
+`test_ssd_match_exact_prior` is mirrored here; JAX's
+`test_ssd_trains_to_above_chance_map` is mirrored in
+tests/test_torch_book.py with the other end-to-end chapters.
 Parity: `SSDLite.priors()`; the forward in train mode (with the new
 BatchNorm `state`) and in eval mode; `ssd_match` with padded gt rows
 and forced matches; `ssd_loss` and its gradient; `ssd_detect`. The

@@ -60,7 +60,12 @@ def test_scan_covers_the_package():
                 "metrics/metrics.py", "testing/op_cases.py",
                 "nn/initializers.py", "nn/fused_bn.py", "nn/rnn.py",
                 "nn/sampled.py", "models/vision.py", "models/nlp.py",
-                "models/detection.py", "testing/nn_cases.py"):
+                "models/detection.py", "testing/nn_cases.py",
+                "quant/fake_quant.py", "quant/layers.py", "quant/ptq.py",
+                "quant/prune.py", "io/inference.py",
+                "testing/quant_cases.py", "data/__init__.py",
+                "data/common.py", "data/readers.py", "data/transforms.py",
+                "data/bucketing.py", "data/datasets.py", "data/feeder.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py"} <= names
@@ -110,6 +115,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.nn.sampled, paddle_tpu_torch.models.vision, "
             "paddle_tpu_torch.models.nlp, paddle_tpu_torch.models.detection, "
             "paddle_tpu_torch.testing.nn_cases, "
+            "paddle_tpu_torch.quant, paddle_tpu_torch.quant.ptq, "
+            "paddle_tpu_torch.quant.prune, paddle_tpu_torch.io.inference, "
+            "paddle_tpu_torch.testing.quant_cases, paddle_tpu_torch.data, "
+            "paddle_tpu_torch.data.datasets, paddle_tpu_torch.data.feeder, "
             "paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
