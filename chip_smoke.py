@@ -93,7 +93,14 @@ user calls:
   `ServeEngine.from_saved_model` with an in-memory engine's streams;
 - `book`: LeNet on the seeded synthetic MNIST through the `data`
   readers and `device_prefetch`, 3 epochs, checkpoint restore, export
-  and `freeze_int8`, test accuracy > 0.7 in float and int8.
+  and `freeze_int8`, test accuracy > 0.7 in float and int8;
+- `mesh_train`: `MeshTrainer` over ranks of `parallel/launch.py` (one
+  process a rank; on one card the ranks share it over gloo): the LM at
+  dp=2, at fsdp=2 (ZeRO under REDUCE) and at tp=2 (Megatron: the flash
+  kernels at each rank's 4 heads), each in f32 at 2 layers and bf16 at
+  full depth against a single-rank run of the whole batch, then dp=2 x
+  fsdp=2 on 4 ranks saving a sharded checkpoint that a fresh world
+  resumes bit for bit.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -163,6 +170,7 @@ from paddle_tpu_torch.serve.sse import (http_get, parse_prometheus_values,
 from paddle_tpu_torch.quant.int8_compute import Int8Linear, freeze_int8
 from paddle_tpu_torch.testing import (nn_cases, one_torch_thread, op_cases,
                                       quant_cases)
+from paddle_tpu_torch.testing import mesh_cases as M
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, bert_tree,
                                       causal_lm_tree,
@@ -4825,6 +4833,200 @@ def phase_book(cfg: dict, device: torch.device, card: dict) -> dict:
     return out
 
 
+# -- training over a mesh of ranks -------------------------------------------
+
+MESH_MODES = {"dp": "lm_dp", "fsdp": "lm_fsdp", "tp": "lm_tp"}
+# f32 parity bars: tests/test_parallel.py:147-152 (dp, fsdp) and
+# :223-228 (tp): (loss rtol, param rtol, param atol)
+MESH_F32_BARS = {"dp": (2e-4, 1e-4, 1e-5), "fsdp": (2e-4, 1e-4, 1e-5),
+                 "tp": (1e-3, 2e-3, 2e-4)}
+# bf16 at full depth is held by its losses only: each step's loss within
+# this relative gap of the single-rank run's (bf16's unit roundoff is
+# 2^-8 = 3.9e-3; the ranks' bf16 GEMMs run at other batch shapes)
+MESH_BF16_LOSS_RTOL = 2e-2
+# ZeRO: a rank's parameter + Adam-slot bytes against the replicated run's
+MESH_FSDP_BYTES_BAR = 0.55
+
+
+def _mesh_ranks(cuda: bool, n: int):
+    """(launch device, share_card, why) of an n-rank world."""
+    if not cuda:
+        return "cpu", False, "CPU rehearsal: every rank on the CPU over gloo"
+    cards = torch.cuda.device_count()
+    if cards >= n:
+        return None, False, f"{cards} cards: each rank on its own card (nccl)"
+    return (None, True,
+            f"{cards} card: the {n} ranks share cuda:0 (launch --share-card),"
+            " where NCCL refuses two ranks on one device, so the data plane"
+            " is gloo through host memory; the NCCL path stays unrun on "
+            "this machine")
+
+
+def _median_ms(ms) -> float:
+    ms = list(ms)
+    return float(np.median(ms[1:] if len(ms) > 1 else ms))
+
+
+def phase_mesh_train(cfg: dict, device: torch.device, card: dict) -> dict:
+    """Training over a mesh of ranks (parallel/trainer.py's MeshTrainer)
+    on the repo's LM, each rank a process of parallel/launch.py running
+    the `lm_*` scenarios of paddle_tpu_torch/testing/mesh_cases.py:
+    dp=2 (each rank B/2), fsdp=2 under REDUCE with fsdp_rules() (ZeRO:
+    parameters, gradients and Adam slots sharded) and tp=2 under
+    transformer_tp_rules (Megatron: kernels 4-6 at each rank's 4 heads).
+    Each mode runs an f32 check at 2 layers of full width and the bf16
+    run at full depth, both against a single-rank MeshTrainer in this
+    process on the whole batch from the same weights. Then dp=2 x
+    fsdp=2 on 4 ranks saves a sharded checkpoint (async) after 2 of 4
+    steps, and a fresh world restores it and runs the last 2. Checks:
+    the f32 bars (MESH_F32_BARS), the bf16 losses within
+    MESH_BF16_LOSS_RTOL, kernels 4, 5 and 6 launched once a layer a step
+    on every rank (counts set to 0 just before the steps), each fsdp
+    rank's parameter + slot bytes at most MESH_FSDP_BYTES_BAR of the
+    replicated rank's, and the restored run's losses and parameters
+    equal to the straight run's bit for bit."""
+    cuda = device.type == "cuda"
+    mc = cfg["mesh_train"]
+    conf = M.lm_conf(mc["vocab"], cfg["max_len"], cfg["lm"], SEED,
+                     cfg["train_lr"], mc["runs"], save_step=mc["save_step"],
+                     fsdp_min_size=mc["fsdp_min_size"])
+    dev2, share2, why2 = _mesh_ranks(cuda, 2)
+    dev4, share4, why4 = _mesh_ranks(cuda, 4)
+    emit({"phase": "mesh_train", "part": "placement", "ranks_2": why2,
+          "ranks_4": why4, "device": card["kind"],
+          "nvidia_smi": card["smi"]})
+    env = {"PTPU_LM": json.dumps(conf)}
+    ref = {}
+    for run in conf["runs"]:
+        tr = M.lm_trainer(None, None, conf, run, device)
+        ref[run["name"]] = M.lm_steps(tr, M.lm_batches(conf, run),
+                                      run["name"])
+        if run.get("params"):
+            ref[run["name"]].update(M.pieces(tr.state().params,
+                                             run["name"] + "/params"))
+        del tr
+        gc.collect()
+    t0 = time.perf_counter()
+    world = M.run_world(2, list(MESH_MODES.values()), device=dev2,
+                        share_card=share2, env=env,
+                        timeout=mc["world_timeout_s"])
+    modes_s = time.perf_counter() - t0
+    f32, big = conf["runs"][0], conf["runs"][-1]
+    n_launch = big["steps"] * big["layers"]
+    out = {"single": {"step_ms": ref[big["name"]][f"{big['name']}/step_ms"]
+                      .tolist(),
+                      "state_bytes": int(ref[big["name"]][
+                          f"{big['name']}/state_bytes"])},
+           "world_2_s": modes_s}
+    replicated = None
+    for mode, name in MESH_MODES.items():
+        ranks = world[name]
+        loss_rtol, p_rtol, p_atol = MESH_F32_BARS[mode]
+        want = ref[f32["name"]]
+        fname, bname = f32["name"], big["name"]
+        for r, res in enumerate(ranks):
+            np.testing.assert_allclose(
+                res[f"{fname}/losses"], want[f"{fname}/losses"],
+                rtol=loss_rtol, err_msg=f"{mode} rank {r} f32 losses")
+        got = M.join(ranks, f"{fname}/params")
+        wantp = M.join([want], f"{fname}/params")
+        p_gap = 0.0
+        for path, w in wantp.items():
+            np.testing.assert_allclose(got[path], w, rtol=p_rtol,
+                                       atol=p_atol,
+                                       err_msg=f"{mode} f32 {path}")
+            p_gap = max(p_gap, float(np.abs(got[path] - w).max()))
+        bl = ref[bname][f"{bname}/losses"]
+        gaps = [float(np.max(np.abs(res[f"{bname}/losses"] - bl) / bl))
+                for res in ranks]
+        check(max(gaps) <= MESH_BF16_LOSS_RTOL,
+              f"{mode}: bf16 losses {[res[f'{bname}/losses'].tolist() for res in ranks]} "
+              f"vs single {bl.tolist()} (rel gap {max(gaps)} > "
+              f"{MESH_BF16_LOSS_RTOL})")
+        launches = []
+        for r, res in enumerate(ranks):
+            got_l = {k: int(res[f"{bname}/launches/{k}"])
+                     for k in FLASH_KERNELS}
+            want_l = dict.fromkeys(FLASH_KERNELS, n_launch if cuda else 0)
+            check(got_l == want_l, f"{mode} rank {r}: launches {got_l} != "
+                                   f"{want_l}")
+            launches.append(got_l)
+        held = [int(res[f"{bname}/state_bytes"]) for res in ranks]
+        if mode == "dp":
+            replicated = held[0]
+        steps = big["steps"]
+        rep = {"mode": mode, "ranks": len(ranks),
+               "f32_losses": ranks[0][f"{fname}/losses"].tolist(),
+               "f32_single_losses": want[f"{fname}/losses"].tolist(),
+               "f32_param_max_abs_gap": p_gap,
+               "f32_bars": {"loss_rtol": loss_rtol, "param_rtol": p_rtol,
+                            "param_atol": p_atol},
+               "bf16_losses": ranks[0][f"{bname}/losses"].tolist(),
+               "bf16_single_losses": bl.tolist(),
+               "bf16_loss_rel_gap": max(gaps),
+               "bf16_loss_rtol": MESH_BF16_LOSS_RTOL,
+               "step_ms_median": [_median_ms(res[f"{bname}/step_ms"])
+                                  for res in ranks],
+               "single_step_ms_median": _median_ms(
+                   ref[bname][f"{bname}/step_ms"]),
+               "collective_ms_per_step": [
+                   float(res[f"{bname}/collective_s"]) * 1e3 / steps
+                   for res in ranks],
+               "collective_calls_per_step": [
+                   int(res[f"{bname}/collective_calls"]) / steps
+                   for res in ranks],
+               "peak_bytes": [int(res[f"{bname}/peak_bytes"])
+                              for res in ranks],
+               "param_slot_bytes": held,
+               "kernel_launches": launches, "layers": big["layers"],
+               "steps": steps, "batch": big["batch"], "seq": big["seq"],
+               "device": card["kind"], "nvidia_smi": card["smi"]}
+        if mode == "fsdp":
+            ratio = max(held) / replicated
+            rep["bytes_vs_replicated"] = ratio
+            check(ratio <= MESH_FSDP_BYTES_BAR,
+                  f"fsdp: a rank holds {max(held)} bytes, {ratio:.3f} of "
+                  f"the replicated {replicated}")
+        emit({"phase": "mesh_train", **rep})
+        out[mode] = rep
+    ckdir = tempfile.mkdtemp(prefix="mesh_train_ckpt_")
+    try:
+        env4 = {**env, "PTPU_WORLD_CKPT": ckdir}
+        t0 = time.perf_counter()
+        straight = M.run_world(4, ["lm_zero_save"], device=dev4,
+                               share_card=share4, env=env4,
+                               timeout=mc["world_timeout_s"])["lm_zero_save"]
+        resumed = M.run_world(4, ["lm_zero_resume"], device=dev4,
+                              share_card=share4, env=env4,
+                              timeout=mc["world_timeout_s"])[
+                                  "lm_zero_resume"]
+        zero_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for r, (a, b) in enumerate(zip(straight, resumed)):
+        check(int(b["step"]) == conf["save_step"],
+              f"rank {r} resumed at {int(b['step'])}")
+        check(np.array_equal(a["rest/losses"], b["rest/losses"]),
+              f"rank {r}: resumed losses {b['rest/losses'].tolist()} != "
+              f"straight {a['rest/losses'].tolist()}")
+        keys = [k for k in a if k.startswith("params/")]
+        check(keys and all(np.array_equal(a[k], b[k]) for k in keys),
+              f"rank {r}: resumed parameters differ from the straight "
+              "run's")
+    zero = {"part": "zero_resume", "ranks": 4, "save_step": conf["save_step"],
+            "straight_losses": np.concatenate(
+                [straight[0]["first/losses"],
+                 straight[0]["rest/losses"]]).tolist(),
+            "resumed_losses": resumed[0]["rest/losses"].tolist(),
+            "bit_equal": True, "worlds_s": zero_s,
+            "step_ms_median": [_median_ms(x["rest/step_ms"])
+                               for x in straight],
+            "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "mesh_train", **zero})
+    out["zero_resume"] = zero
+    return out
+
+
 def full_config() -> dict:
     return dict(
         lm=LM_BASE, vocab=LM_VOCAB, max_len=LM_MAX_LEN, dtype=torch.bfloat16,
@@ -4941,7 +5143,20 @@ def full_config() -> dict:
                     resnet_batch=16, lm_example=16,
                     lm_prompts=(40, 100, 7, 64), lm_new=16),
         # book: tests/test_book_mnist.py's LeNet run
-        book=dict(train=2048, test=512, epochs=3))
+        book=dict(train=2048, test=512, epochs=3),
+        # mesh_train: the LM at full width, f32 at 2 layers (B 4 x T 256,
+        # 3 SGD steps, as tests/test_parallel.py's parity bar) and bf16 at
+        # full depth (phase train's B 4 x T 2048, 4 Adam steps);
+        # fsdp_rules()'s default min_size
+        mesh_train=dict(
+            vocab=LM_VOCAB, save_step=2, fsdp_min_size=1 << 16,
+            world_timeout_s=400,
+            runs=[dict(name="f32", dtype="float32", layers=2, batch=4,
+                       seq=256, steps=3, params=True, optimizer="sgd",
+                       lr=0.05),
+                  dict(name="bf16", dtype="bfloat16",
+                       layers=LM_BASE["num_layers"], batch=4, seq=2048,
+                       steps=4)]))
 
 
 def tiny_config() -> dict:
@@ -5002,7 +5217,16 @@ def tiny_config() -> dict:
         export=dict(resnet_layers=(1, 1, 1, 1), classes=10, image=32,
                     resnet_batch=2, lm_example=8, lm_prompts=(5, 9),
                     lm_new=4),
-        book=dict(train=2048, test=512, epochs=3))
+        book=dict(train=2048, test=512, epochs=3),
+        # the vocab a multiple of 4 (the tp and fsdp rows split evenly);
+        # a min_size the tiny weights reach
+        mesh_train=dict(
+            vocab=96, save_step=1, fsdp_min_size=1024, world_timeout_s=240,
+            runs=[dict(name="f32", dtype="float32", layers=2, batch=4,
+                       seq=16, steps=2, params=True, optimizer="sgd",
+                       lr=0.05),
+                  dict(name="big", dtype="float32", layers=2, batch=4,
+                       seq=32, steps=2)]))
 
 
 @contextlib.contextmanager
@@ -5077,6 +5301,7 @@ def main(argv=None) -> int:
         phase_quant(cfg, device, card)
         export = phase_export(cfg, tree, device, card)
         phase_book(cfg, device, card)
+        mesh = phase_mesh_train(cfg, device, card)
 
         rows = []
         for name, (source, replaces, _) in KERNEL_ROWS.items():
@@ -5108,6 +5333,8 @@ def main(argv=None) -> int:
                     dt: r["kernel_launches"][name]
                     for dt, r in generate.items()}
             if name in FLASH_KERNELS:
+                rows[-1]["launches_mesh_tp_per_rank"] = [
+                    r[name] for r in mesh["tp"]["kernel_launches"]]
                 rows[-1]["launches_bert"] = bert["kernel_launches"][name]
                 rows[-1]["launches_seq2seq"] = \
                     seq2seq["kernel_launches"][name]

@@ -1,7 +1,7 @@
 """Input pipelines of the port (paddle_tpu/data counterpart): readers and
 their decorators, bucketing, transforms, the built-in datasets (pure
 numpy copies of the JAX package's) and the host -> device feeders. The
-native DataFeed (`data/datafeed.py`) comes with ROADMAP item 10."""
+native DataFeed (`data/datafeed.py`) comes with ROADMAP item 10c."""
 
 from paddle_tpu_torch.data import (bucketing, common, datasets, readers,
                                    transforms)

@@ -5,8 +5,9 @@ default) through pinned host memory with non-blocking copies, so the
 copy of batch k+1 overlaps batch k's step (Paddle's BufferedReader does
 this on a dedicated CUDA stream; JAX's `device_put` is asynchronous).
 The CPU is used only when the caller asks for it (`device="cpu"`).
-JAX's `sharding=` (a mesh placement) comes with the meshes of ROADMAP
-item 10 and raises NotImplementedError.
+`sharding=` takes a mesh's batch placement (`MeshTrainer.batch_sharding()`,
+a parallel.sharding.BatchSharding): each leaf's rows of this rank go to
+the rank's device, as JAX's `sharding=` puts each device's rows.
 """
 
 from __future__ import annotations
@@ -20,11 +21,17 @@ from paddle_tpu_torch.device import DeviceLike, indexed, resolve_device
 from paddle_tpu_torch.utils.tree import map_leaves
 
 
-def _no_sharding(sharding) -> None:
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding= (a mesh placement) comes with the meshes of "
-            "ROADMAP item 10; pass device= for one device")
+def _placement(sharding, device: DeviceLike):
+    """(rows of a leaf for this rank, its device) of `sharding` or of
+    `device` (default the card)."""
+    if sharding is None:
+        return (lambda x: x), indexed(resolve_device(device))
+    from paddle_tpu_torch.parallel.sharding import BatchSharding
+    if not isinstance(sharding, BatchSharding):
+        raise TypeError(f"sharding= takes a BatchSharding "
+                        f"(MeshTrainer.batch_sharding()), got "
+                        f"{type(sharding).__name__}")
+    return sharding.local, indexed(resolve_device(sharding.device))
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:
@@ -40,12 +47,12 @@ def device_prefetch(it: Iterable, size: int = 2,
                     device: DeviceLike = None,
                     sharding: Optional[Any] = None) -> Iterator:
     """Yield batches (numpy trees: arrays, tuples, lists, dicts) as tensors
-    on `device` (default the card), keeping `size` copies in flight."""
-    _no_sharding(sharding)
-    device = indexed(resolve_device(device))
+    on `device` (default the card), or this rank's rows of them on its
+    device under `sharding`, keeping `size` copies in flight."""
+    rows, device = _placement(sharding, device)
 
     def put(batch):
-        return map_leaves(lambda x: to_device(x, device), batch)
+        return map_leaves(lambda x: to_device(rows(x), device), batch)
     queue = []
     it = iter(it)
     try:
@@ -65,16 +72,16 @@ class DataFeeder:
     """Convert samples / batches to tensors on `device` (default the card)
     with dtype conventions (fluid.DataFeeder's role): `feed(batch)` takes
     a name-keyed dict or a sequence in `feed_names` order and returns
-    {name: tensor}, each cast first to its `dtypes` entry when given.
-    Ragged sequence feeds use dense padding plus explicit lengths."""
+    {name: tensor}, each cast first to its `dtypes` entry when given
+    (under `sharding`, this rank's rows on its device). Ragged sequence
+    feeds use dense padding plus explicit lengths."""
 
     def __init__(self, feed_names: Sequence[str], dtypes=None,
                  device: DeviceLike = None,
                  sharding: Optional[Any] = None):
-        _no_sharding(sharding)
         self.feed_names = list(feed_names)
         self.dtypes = dtypes or {}
-        self.device = indexed(resolve_device(device))
+        self._rows, self.device = _placement(sharding, device)
 
     def feed(self, batch) -> dict:
         if isinstance(batch, dict):
@@ -86,5 +93,5 @@ class DataFeeder:
             arr = np.asarray(value)
             if name in self.dtypes:
                 arr = arr.astype(self.dtypes[name])
-            out[name] = to_device(arr, self.device)
+            out[name] = to_device(self._rows(arr), self.device)
         return out

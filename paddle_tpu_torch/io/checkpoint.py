@@ -18,8 +18,26 @@ holding every leaf whole.
 Leaves are keyed as JAX's pytree paths join them (utils/tree.py): a
 `TrainState` is written under `0/...` (params), `1/...` (state),
 `2/slots/...` and `2/step`, and `3`, so each package reads the other's
-checkpoint. The port writes as one process (`shards-p0.npz`, every leaf
-whole); it reads the pieces of any process count.
+checkpoint.
+
+Across processes (a `torch.distributed` world, one process a rank) every
+rank writes its own pieces to `shards-p{rank}.npz` and
+`shard_index-p{rank}.json`: a leaf that is a `Piece` (parallel/sharding,
+what `MeshTrainer.state()` gives) writes its data under its index when
+the rank owns it (the lowest of the ranks holding that part, as JAX
+writes replica 0), any other leaf is written whole by rank 0. The ranks
+stage into `<path>.ptmp` and meet at barriers between the stage, shard
+and commit phases; rank 0 records every file's CRC32 and the
+`process_count` in the manifest and renames the directory into place.
+The barriers go over the process group's TCP store (a key per rank and
+a per-name sequence; the `barrier` chaos site; retried), never as a
+c10d collective, so `AsyncCheckpointer`'s worker thread can run them
+while the main thread keeps training. A rank that fails drops a marker
+(`<path>.err-p{rank}`) before the next barrier and every rank checks for
+markers after it, so one bad disk raises everywhere instead of hanging.
+
+`load_checkpoint(path, target=trainer.state())` reads only each Piece's
+own region, from a checkpoint of any process count and any geometry.
 
 `save_checkpoint` takes its snapshot on the calling thread before it
 returns anything: the port's optimizers update parameters and slots in
@@ -36,7 +54,10 @@ the retried call; content errors (a CRC mismatch) are not retried.
 
 from __future__ import annotations
 
+import datetime
+import glob
 import json
+import math
 import os
 import re
 import shutil
@@ -47,6 +68,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddle_tpu_torch.resilience import chaos as _chaos
 from paddle_tpu_torch.resilience.retry import (RetryPolicy, retry_call,
@@ -63,6 +85,89 @@ _CKPT_RE = re.compile(r"^ckpt-(\d+)$")
 # 5xx); bounded retries here, content errors (CRC) are NOT retryable.
 _IO_RETRY = RetryPolicy(attempts=3, base_delay=0.1, max_delay=2.0,
                         retry_on=(OSError,))
+# A barrier re-wait sets the same per-rank key again (idempotent), but a
+# deadline error means the peers moved on: re-waiting can only hang.
+_BARRIER_RETRY = RetryPolicy(
+    attempts=2, base_delay=0.2, max_delay=2.0, retry_on=(RuntimeError,),
+    giveup=lambda e: "deadline" in str(e).lower()
+    or "timed out" in str(e).lower() or "timeout" in str(e).lower())
+_BARRIER_TIMEOUT_S = 600.0
+
+
+def _world() -> Tuple[int, int]:
+    """(this process's rank, the process count) of the torch.distributed
+    world, (0, 1) alone."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+_barrier_lock = threading.Lock()
+_barrier_seq: Dict[str, int] = {}   # per-barrier-name use counts
+
+
+def _barrier(name: str) -> None:
+    """A cross-process barrier over the default group's TCP store: each
+    rank sets its own key and waits for every rank's. Not a c10d
+    collective, so an async save's worker thread can meet its peers
+    while the main thread runs the training step's collectives. The
+    per-NAME sequence (the name embeds the path and the stage)
+    disambiguates repeated saves to one path without coupling
+    independent save streams."""
+    rank, count = _world()
+    if count <= 1:
+        return
+    store = dist.distributed_c10d._get_default_store()
+    with _barrier_lock:
+        seq = _barrier_seq.get(name, 0)
+        _barrier_seq[name] = seq + 1
+    key = f"ptpu-ckpt:{seq}:{name}"
+
+    def wait():
+        _chaos.maybe_fail("barrier")
+        store.set(f"{key}/{rank}", "1")
+        store.wait([f"{key}/{r}" for r in range(count)],
+                   datetime.timedelta(seconds=_BARRIER_TIMEOUT_S))
+    retry_call(wait, policy=_BARRIER_RETRY, name="barrier",
+               budget=shared_budget())
+
+
+# -- failure markers around the barriers ---------------------------------
+
+def _marker(path: str, proc: int) -> str:
+    return os.path.abspath(path) + f".err-p{proc}"
+
+
+def _mark_failure(path: str, proc: int, exc: BaseException) -> None:
+    try:
+        with open(_marker(path, proc), "w") as f:
+            f.write(f"{type(exc).__name__}: {exc}")
+    except OSError:
+        pass  # the check below still sees this rank's own exception
+
+
+def _check_failures(path: str) -> None:
+    markers = sorted(glob.glob(glob.escape(os.path.abspath(path))
+                               + ".err-p*"))
+    if markers:
+        msgs = []
+        for m in markers:
+            try:
+                with open(m) as f:
+                    msgs.append(f"{os.path.basename(m)}: {f.read()}")
+            except OSError:
+                msgs.append(os.path.basename(m))
+        raise RuntimeError(
+            f"checkpoint save to {path} failed on a peer process:\n  "
+            + "\n  ".join(msgs))
+
+
+def _clear_markers(path: str) -> None:
+    for m in glob.glob(glob.escape(os.path.abspath(path)) + ".err-p*"):
+        try:
+            os.remove(m)
+        except OSError:
+            pass
 
 
 class CheckpointIntegrityError(RuntimeError, ValueError):
@@ -99,79 +204,146 @@ def _verify(path: str, fname: str, sums: Dict[str, dict]) -> None:
 
 # -- writing ------------------------------------------------------------
 
+def _host_copy(leaf, key: str) -> np.ndarray:
+    """A host numpy copy of a tensor (a pinned non-blocking copy from the
+    card), an array or a scalar."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            raise TypeError(f"leaf {key!r} is bfloat16, which numpy "
+                            "cannot hold; cast it to float32")
+        if leaf.is_cuda:
+            buf = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+            buf.copy_(leaf, non_blocking=True)
+            return buf.numpy()
+        return leaf.numpy().copy()
+    return np.array(leaf, copy=True)
+
+
 def _snapshot(tree) -> Tuple[List[dict], Dict[str, np.ndarray],
-                             List[dict]]:
-    """Every leaf of `tree` as host numpy that nothing else references:
-    (the leaves' manifest records, {slot: array}, the shard index; every
-    leaf whole). Each card that holds a leaf is synchronised first, so
-    that a value still being written on any of its streams (a side
-    stream included) has landed; the CUDA tensors are then copied into
-    pinned host buffers by non-blocking copies on the current stream,
-    which is synchronised once; everything else is copied. Returns only
-    when every copy has landed."""
+                             List[dict], int, int]:
+    """The pieces of `tree` this process writes, as host numpy that
+    nothing else references: (the leaves' manifest records, {slot:
+    array}, the shard index, this rank, the process count). A `Piece`
+    leaf writes its data under its index when this rank owns it; any
+    other leaf is written whole by rank 0. Each card that holds a leaf
+    is synchronised first, so a value still being written on any of its
+    streams has landed; CUDA tensors are copied into pinned host buffers
+    by non-blocking copies on the current stream, which is synchronised
+    once. Returns only when every copy has landed."""
+    from paddle_tpu_torch.parallel.sharding import Piece
+    rank, count = _world()
     flat = flatten_with_keys(tree)
-    devices = {leaf.device for _, leaf in flat
-               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+
+    def data(leaf):
+        return leaf.data if isinstance(leaf, Piece) else leaf
+    devices = {data(leaf).device for _, leaf in flat
+               if isinstance(data(leaf), torch.Tensor)
+               and data(leaf).is_cuda}
     for dev in devices:
         torch.cuda.synchronize(dev)
     leaves, shards, index = [], {}, []
     for i, (key, leaf) in enumerate(flat):
-        slot = f"a{i}_s{i}"
-        if isinstance(leaf, torch.Tensor):
-            leaf = leaf.detach()
-            if leaf.dtype == torch.bfloat16:
-                raise TypeError(f"leaf {key!r} is bfloat16, which numpy "
-                                "cannot hold; cast it to float32")
-            if leaf.is_cuda:
-                buf = torch.empty(leaf.shape, dtype=leaf.dtype,
-                                  pin_memory=True)
-                buf.copy_(leaf, non_blocking=True)
-                arr = buf.numpy()
-            else:
-                arr = leaf.numpy().copy()
+        if isinstance(leaf, Piece):
+            shape = leaf.shape
+            dtype = str(_host_dtype(leaf.data))
+            if leaf.owner:
+                slot = f"a{i}_s{len(index)}"
+                shards[slot] = _host_copy(leaf.data, key)
+                index.append({"leaf": i, "slot": slot,
+                              "index": leaf.spans()})
         else:
-            arr = np.array(leaf, copy=True)
-        shards[slot] = arr
-        leaves.append({"key": key, "shape": list(arr.shape),
-                       "dtype": str(arr.dtype)})
-        index.append({"leaf": i, "slot": slot,
-                      "index": [[0, d] for d in arr.shape]})
+            if rank == 0:
+                arr = _host_copy(leaf, key)
+                slot = f"a{i}_s{len(index)}"
+                shards[slot] = arr
+                index.append({"leaf": i, "slot": slot,
+                              "index": [[0, d] for d in arr.shape]})
+            shape = tuple(np.shape(leaf))
+            dtype = str(_host_dtype(leaf))
+        leaves.append({"key": key, "shape": list(shape), "dtype": dtype})
     for dev in devices:
         torch.cuda.current_stream(dev).synchronize()
-    return leaves, shards, index
+    return leaves, shards, index, rank, count
+
+
+def _host_dtype(leaf) -> np.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
 
 
 def _write_snapshot(path: str, snap, step: Optional[int],
                     metadata: Optional[Dict]) -> str:
     """The file and commit phase over a host snapshot (no device access;
-    safe on a background thread): stage in a temporary directory beside
-    `path`, record each file's CRC32 and size in the manifest, then
-    rename into place."""
-    leaves, shards, index = snap
-    tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(path)) or ".")
+    safe on a background thread): stage, record each file's CRC32 and
+    size in the manifest, then rename into place. Across processes the
+    ranks stage into one `<path>.ptmp` and meet at the stage, shard and
+    commit barriers, rank 0 writing the manifest and renaming."""
+    leaves, shards, index, rank, count = snap
+    multi = count > 1
+    if multi:
+        tmp = os.path.abspath(path) + ".ptmp"
+        if rank == 0:
+            _clear_markers(path)
+            try:
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp, exist_ok=True)
+            except BaseException as e:
+                _mark_failure(path, rank, e)
+        _barrier(f"ckpt-stage:{path}")
+        _check_failures(path)
+    else:
+        _clear_markers(path)
+        tmp = tempfile.mkdtemp(
+            dir=os.path.dirname(os.path.abspath(path)) or ".")
+    sname, iname = f"shards-p{rank}.npz", f"shard_index-p{rank}.json"
     try:
-        def write_shards():
-            _chaos.maybe_fail("ckpt_write")
-            np.savez(os.path.join(tmp, "shards-p0.npz"), **shards)
-            with open(os.path.join(tmp, "shard_index-p0.json"), "w") as f:
-                json.dump(index, f)
-        retry_call(write_shards, policy=_IO_RETRY, name="ckpt_write",
-                   budget=shared_budget())
-        files = {}
-        for name in ("shard_index-p0.json", "shards-p0.npz"):
-            crc, size = _crc32_file(os.path.join(tmp, name))
-            files[name] = {"crc32": crc, "bytes": size}
-        manifest = {"version": 2,
-                    "step": None if step is None else int(step),
-                    "metadata": metadata or {}, "process_count": 1,
-                    "files": files, "leaves": leaves}
-        with open(os.path.join(tmp, _MANIFEST), "w") as f:
-            json.dump(manifest, f, indent=1)
-        if os.path.isdir(path):
-            shutil.rmtree(path)
-        os.replace(tmp, path)
+        try:
+            def write_shards():
+                _chaos.maybe_fail("ckpt_write")
+                np.savez(os.path.join(tmp, sname), **shards)
+                with open(os.path.join(tmp, iname), "w") as f:
+                    json.dump(index, f)
+            retry_call(write_shards, policy=_IO_RETRY, name="ckpt_write",
+                       budget=shared_budget())
+        except BaseException as e:
+            if multi:
+                _mark_failure(path, rank, e)
+            raise
+        finally:
+            _barrier(f"ckpt-shards:{path}")
+        _check_failures(path)
+        if rank == 0:
+            try:
+                files = {}
+                for p in range(count):
+                    for name in (f"shard_index-p{p}.json",
+                                 f"shards-p{p}.npz"):
+                        crc, size = _crc32_file(os.path.join(tmp, name))
+                        files[name] = {"crc32": crc, "bytes": size}
+                manifest = {"version": 2,
+                            "step": None if step is None else int(step),
+                            "metadata": metadata or {},
+                            "process_count": count,
+                            "files": files, "leaves": leaves}
+                with open(os.path.join(tmp, _MANIFEST), "w") as f:
+                    json.dump(manifest, f, indent=1)
+                if os.path.isdir(path):
+                    shutil.rmtree(path)
+                os.replace(tmp, path)
+            except BaseException as e:
+                if multi:
+                    _mark_failure(path, rank, e)
+                raise
+            finally:
+                _barrier(f"ckpt-commit:{path}")
+        else:
+            _barrier(f"ckpt-commit:{path}")
+        _check_failures(path)
     except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
         raise
     return path
 
@@ -204,20 +376,29 @@ def _pieces(path: str, manifest: dict
     return out
 
 
-def _read_leaves(path: str, manifest: dict, wanted: List[int]
+def _read_leaves(path: str, manifest: dict,
+                 wanted: Dict[int, Optional[List[List[int]]]]
                  ) -> Dict[int, np.ndarray]:
-    """The leaves of ordinals `wanted`, each assembled from its pieces."""
+    """The leaves of ordinals `wanted`, each the region given ([[start,
+    stop], ...] per dim; None for the whole leaf) assembled from the
+    pieces that overlap it. Only the shard files those pieces live in
+    are opened (and verified)."""
     sums = manifest.get("files") or {}
     files: Dict[str, Any] = {}
     out = {}
     try:
         table = _pieces(path, manifest)
-        for i in wanted:
+        for i, region in wanted.items():
             leaf = manifest["leaves"][i]
-            shape = tuple(leaf["shape"])
-            arr = np.zeros(shape, np.dtype(leaf["dtype"]))
-            filled = np.zeros(shape, bool)
+            want = region or [[0, d] for d in leaf["shape"]]
+            rshape = tuple(b - a for a, b in want)
+            arr = np.zeros(rshape, np.dtype(leaf["dtype"]))
+            filled = 0
             for spans, fname, slot in table.get(i, []):
+                inter = [(max(a, c), min(b, d))
+                         for (a, b), (c, d) in zip(want, spans)]
+                if any(lo >= hi for lo, hi in inter):
+                    continue
                 if fname not in files:
                     _verify(path, fname, sums)
 
@@ -227,10 +408,13 @@ def _read_leaves(path: str, manifest: dict, wanted: List[int]
                     files[fname] = retry_call(load, policy=_IO_RETRY,
                                               name="ckpt_read",
                                               budget=shared_budget())
-                region = tuple(slice(a, b) for a, b in spans)
-                arr[region] = files[fname][slot]
-                filled[region] = True
-            if not filled.all():
+                dst = tuple(slice(lo - a, hi - a)
+                            for (lo, hi), (a, _) in zip(inter, want))
+                src = tuple(slice(lo - c, hi - c)
+                            for (lo, hi), (c, _) in zip(inter, spans))
+                arr[dst] = files[fname][slot][src]
+                filled += math.prod(hi - lo for lo, hi in inter)
+            if filled < math.prod(rshape):
                 raise ValueError(f"checkpoint {path}: leaf {leaf['key']!r} "
                                  "is not covered by its shard pieces")
             out[i] = arr
@@ -241,8 +425,12 @@ def _read_leaves(path: str, manifest: dict, wanted: List[int]
 
 
 def _like(arr: np.ndarray, ref):
-    """A loaded leaf in the form of its target leaf: a tensor of the
-    target's dtype on its device, numpy of its dtype, or numpy."""
+    """A loaded leaf in the form of its target leaf: a Piece of the
+    target's index, a tensor of the target's dtype on its device, numpy
+    of its dtype, or numpy."""
+    from paddle_tpu_torch.parallel.sharding import Piece
+    if isinstance(ref, Piece):
+        return Piece(_like(arr, ref.data), ref.shape, ref.index, ref.owner)
     if isinstance(ref, torch.Tensor):
         return torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
     if isinstance(ref, np.ndarray):
@@ -259,14 +447,18 @@ def load_checkpoint(path: str, target=None):
     the result mirrors its structure: a target leaf the checkpoint lacks
     raises FileNotFoundError (as JAX's does), a shape that differs
     raises ValueError, and each leaf comes back in its target leaf's
-    dtype, tensors on the target's device. A shard file whose CRC32 or
-    size disagrees with the manifest raises CheckpointIntegrityError."""
+    dtype, tensors on the target's device. A `Piece` leaf (a rank's part,
+    as `MeshTrainer.state()` gives) reads only its own region and comes
+    back as a Piece. A shard file whose CRC32 or size disagrees with the
+    manifest raises CheckpointIntegrityError."""
+    from paddle_tpu_torch.parallel.sharding import Piece
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     key_to_leaf = {leaf["key"]: i
                    for i, leaf in enumerate(manifest["leaves"])}
     if target is None:
-        arrays = _read_leaves(path, manifest, list(range(len(key_to_leaf))))
+        arrays = _read_leaves(path, manifest,
+                              dict.fromkeys(range(len(key_to_leaf))))
         return nest({key: arrays[i] for key, i in key_to_leaf.items()})
     flat = flatten_with_keys(target)
     missing = [k for k, _ in flat if k not in key_to_leaf]
@@ -275,10 +467,13 @@ def load_checkpoint(path: str, target=None):
                                 f"leaves, e.g. {missing[:5]}")
     for key, ref in flat:
         shape = tuple(manifest["leaves"][key_to_leaf[key]]["shape"])
-        if shape != tuple(np.shape(ref)):
+        want = ref.shape if isinstance(ref, Piece) else tuple(np.shape(ref))
+        if shape != tuple(want):
             raise ValueError(f"leaf {key}: checkpoint shape {shape} != "
-                             f"target {tuple(np.shape(ref))}")
-    arrays = _read_leaves(path, manifest, [key_to_leaf[k] for k, _ in flat])
+                             f"target {tuple(want)}")
+    arrays = _read_leaves(path, manifest, {
+        key_to_leaf[k]: ref.spans() if isinstance(ref, Piece) else None
+        for k, ref in flat})
     return unflatten_like(target, iter(
         _like(arrays[key_to_leaf[k]], ref) for k, ref in flat))
 
@@ -408,8 +603,8 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         # Failure markers (`ckpt-{step}.err-p{K}`) a crashed multi-process
         # save of a previous run left behind would poison this run's
-        # saves once the port writes across processes; sweep them
-        # before any save starts, as JAX's manager does.
+        # saves; sweep them before any save starts, as JAX's manager
+        # does.
         for name in os.listdir(directory):
             if ".err-p" in name:
                 try:
@@ -430,8 +625,9 @@ class CheckpointManager:
     def _post_commit(self, path: str, step: int) -> None:
         # chaos corruption happens AFTER commit, so a torn-checkpoint
         # scenario matches a real torn write: the manifest promises
-        # content the files no longer have
-        _chaos.maybe_corrupt_checkpoint(path, step)
+        # content the files no longer have; once, by rank 0
+        if _world()[0] == 0:
+            _chaos.maybe_corrupt_checkpoint(path, step)
         self._gc()
 
     def wait(self) -> None:

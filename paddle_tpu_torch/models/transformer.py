@@ -38,6 +38,23 @@ IN PLACE (JAX returns new pools; an in-place `index_copy_` saves a
 pool-sized copy per layer per step). The projections, the FFN and the
 tied head stay `torch.matmul`, as JAX left them to XLA.
 
+Tensor-parallel training: under a mesh whose tp axis spans ranks (the
+one `MeshTrainer` enters, parallel/mesh.current_mesh), the dense
+forward of `MultiHeadAttention` and `FeedForward` runs Megatron-style
+at this rank's local widths: q/k/v (or the head-major fused qkv / kv)
+and fc1 column-parallel, their input through `copy_to_axis` and their
+whole bias sliced to the rank's columns through it too (so the bias's
+gradient is summed over tp); out_proj and fc2 row-parallel through
+`reduce_from_axis`, the bias added once after the sum. Attention runs
+the flash kernels over the rank's H/tp heads. The layers declare these
+parameters in `local_specs()`, which the trainer holds the rules to
+(`transformer_tp_rules`). Dropout on a rank's own heads or FFN columns
+draws from `_tp_generator` (the tp coordinate folded in), so the tp
+ranks' masks differ, as one device's over the whole activation would;
+dropout on the replicated activations draws from the caller's generator,
+the same on every tp rank. The single-device forward and the serving
+paths are unchanged.
+
 Tensor-parallel serving (`tp=`, a `ServeTP`, on the serve step and the
 split path's chunked prefill): each rank's model holds its shard of the
 weights (parallel/sharding.serve_tp_rules; `shard_module`) and runs at
@@ -53,6 +70,7 @@ rank, so every rank's logits are complete.
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -80,6 +98,53 @@ def sinusoid_position_encoding(maxlen: int, dim: int,
     i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / dim)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _train_tp():
+    """The tp group of the current mesh (the one a MeshTrainer entered)
+    when its tp axis spans ranks, else None."""
+    from paddle_tpu_torch.parallel.mesh import current_mesh
+    mesh = current_mesh()
+    return None if mesh is None else mesh.maybe_group("tp")
+
+
+def _tp_generator(generator: Optional[torch.Generator],
+                  tp) -> Optional[torch.Generator]:
+    """The generator for dropout on this rank's tp shard of an activation
+    (its heads' attention, its FFN columns): seeded from `generator`'s
+    state with the tp coordinate folded in, so each tp rank draws its
+    own mask. `generator` then advances by one draw, alike on every tp
+    rank: the next shard draws anew and the replicated activations'
+    dropout stays the same across tp."""
+    if generator is None:
+        return None
+    seed = zlib.crc32(generator.get_state().numpy().tobytes())
+    torch.rand(1, generator=generator, device=generator.device)
+    return fold_in(seed, tp.rank, generator.device)
+
+
+def _col(lin: Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """A column-parallel Linear over this rank's weight columns; its
+    whole bias sliced to them through copy_to_axis, so the bias's
+    gradient is the sum of the ranks' slices."""
+    from paddle_tpu_torch.parallel.collective import copy_to_axis
+    y = torch.matmul(x.to(lin.dtype), lin.weight.to(lin.dtype))
+    if lin.bias is None:
+        return y
+    b = copy_to_axis(lin.bias, tp).chunk(tp.size)[tp.rank]
+    return y + b.to(lin.dtype)
+
+
+def _row(lin: Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel Linear: this rank's partial product summed over
+    tp, the bias added once after the sum."""
+    from paddle_tpu_torch.parallel.collective import reduce_from_axis
+    y = reduce_from_axis(torch.matmul(x.to(lin.dtype),
+                                      lin.weight.to(lin.dtype)), tp)
+    return y if lin.bias is None else y + lin.bias.to(lin.dtype)
+
+
+_COL, _ROW = (None, "tp"), ("tp", None)
 
 
 def init_kv_caches(layers, batch: int, max_len: int,
@@ -149,6 +214,54 @@ class MultiHeadAttention(nn.Module):
                                device=device)
         self.drop = Dropout(dropout)
 
+    def local_specs(self) -> Dict[str, Tuple]:
+        """The parameters the tensor-parallel training forward consumes
+        at this rank's width: the projections column-parallel, out_proj
+        row-parallel."""
+        specs = {"out_proj.weight": _ROW}
+        for name in ("qkv", "kv", "q_proj", "k_proj", "v_proj"):
+            if hasattr(self, name):
+                specs[f"{name}.weight"] = _COL
+        return specs
+
+    def _forward_tp(self, x: torch.Tensor, tp, segment_ids, generator,
+                    mask, causal: bool, kv: Optional[torch.Tensor]):
+        """The Megatron training forward at this rank's heads."""
+        from paddle_tpu_torch.parallel.collective import copy_to_axis
+        n = tp.size
+        if self.num_heads % n or self.num_kv_heads % n:
+            raise ValueError(f"{self.num_heads} heads over "
+                             f"{self.num_kv_heads} kv heads do not split "
+                             f"over tp={n}")
+        h, hkv, hd = self.num_heads // n, self.num_kv_heads // n, \
+            self.head_dim
+        b, t = x.shape[:2]
+        xin = copy_to_axis(x, tp)
+        if kv is None:
+            lead = x.shape[:-1]
+            if self.fused_qkv:
+                p = _col(self.qkv, xin, tp).reshape(*lead, h, 3, hd)
+                qh, kh, vh = p[..., 0, :], p[..., 1, :], p[..., 2, :]
+            else:
+                qh = _col(self.q_proj, xin, tp).reshape(*lead, h, hd)
+                kh = _col(self.k_proj, xin, tp).reshape(*lead, hkv, hd)
+                vh = _col(self.v_proj, xin, tp).reshape(*lead, hkv, hd)
+        else:
+            kin, lead = copy_to_axis(kv, tp), kv.shape[:-1]
+            qh = _col(self.q_proj, xin, tp).reshape(*x.shape[:-1], h, hd)
+            if self.fused_qkv:
+                p = _col(self.kv, kin, tp).reshape(*lead, h, 2, hd)
+                kh, vh = p[..., 0, :], p[..., 1, :]
+            else:
+                kh = _col(self.k_proj, kin, tp).reshape(*lead, hkv, hd)
+                vh = _col(self.v_proj, kin, tp).reshape(*lead, hkv, hd)
+        drop = self.training and self.drop.rate > 0
+        out = mha(qh, kh, vh, mask=mask, causal=causal,
+                  segment_ids=segment_ids,
+                  generator=_tp_generator(generator, tp) if drop else None,
+                  dropout_rate=self.drop.rate if self.training else 0.0)
+        return _row(self.out_proj, out.reshape(b, t, h * hd), tp)
+
     def _project_cross(self, x: torch.Tensor, kv: torch.Tensor):
         """q [..., Tq, H, hd] from x, k/v [..., Tk, Hkv, hd] from kv."""
         qh = self.q_proj(x).reshape(*x.shape[:-1], self.num_heads,
@@ -212,6 +325,10 @@ class MultiHeadAttention(nn.Module):
         call's k/v only (the caller passes causal=True: on the card that
         is the flash forward kernel); otherwise the query attends over
         the whole new cache under `mask`."""
+        tp = _train_tp() if cache is None else None
+        if tp is not None:
+            return self._forward_tp(x, tp, segment_ids, generator, mask,
+                                    causal, kv)
         b, t = x.shape[:2]
         qh, kh, vh = (self._project(x) if kv is None
                       else self._project_cross(x, kv))
@@ -320,10 +437,22 @@ class FeedForward(nn.Module):
         self.fc2 = Linear(hidden_dim, model_dim, dtype=dtype, device=device)
         self.drop = Dropout(dropout)
 
+    def local_specs(self) -> Dict[str, Tuple]:
+        """fc1 column-parallel, fc2 row-parallel under tensor-parallel
+        training."""
+        return {"fc1.weight": _COL, "fc2.weight": _ROW}
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        return self.fc2(self.drop(torch.relu(self.fc1(x)), generator))
+        tp = _train_tp()
+        if tp is None:
+            return self.fc2(self.drop(torch.relu(self.fc1(x)), generator))
+        from paddle_tpu_torch.parallel.collective import copy_to_axis
+        h = torch.relu(_col(self.fc1, copy_to_axis(x, tp), tp))
+        if self.training and self.drop.rate > 0:
+            h = self.drop(h, _tp_generator(generator, tp))
+        return _row(self.fc2, h, tp)
 
     def forward_serve_tp(self, x: torch.Tensor, tp) -> torch.Tensor:
         """Megatron column-then-row MLP of the tensor-parallel serve

@@ -580,7 +580,15 @@ class BatchNorm(nn.Module):
     batch; `use_running_stats` overrides the choice of stats. With
     `fuse_relu` the layer ends in a ReLU, through `bn_relu_train` (which
     saves only its output-side tensors for backward) when training on
-    batch stats with the features last, scale and center."""
+    batch stats with the features last, scale and center.
+
+    `axis_name` (an axis or a tuple of axes of the current mesh, the one
+    MeshTrainer enters) is sync-BN: the batch mean and E[x^2] are
+    averaged over those ranks, with gradient, before the variance is
+    taken (JAX's pmean, nn/layers.py:399-401); `fuse_relu` then takes
+    the unfused path, as in JAX. With no mesh current it raises
+    NameError, as JAX's unbound axis does. Without `axis_name` a rank's
+    statistics are its own batch's."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5, scale: bool = True,
@@ -589,10 +597,7 @@ class BatchNorm(nn.Module):
                  axis_name: Optional[str] = None, fuse_relu: bool = False,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "BatchNorm(axis_name=...) (sync-BN over a mesh axis) comes "
-                "with the meshes of ROADMAP item 10")
+        self.axis_name = axis_name
         self.momentum = momentum
         self.epsilon = epsilon
         self.axis = axis
@@ -604,6 +609,18 @@ class BatchNorm(nn.Module):
                       if scale else None)
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if center else None)
+
+    def _sync(self, stats: torch.Tensor) -> torch.Tensor:
+        """`stats` averaged over the ranks of `axis_name` on the current
+        mesh, with gradient."""
+        from paddle_tpu_torch.parallel.collective import all_reduce_mean
+        from paddle_tpu_torch.parallel.mesh import current_mesh
+        mesh = current_mesh()
+        if mesh is None:
+            raise NameError(f"unbound axis name: {self.axis_name!r} (no "
+                            "mesh is current; MeshTrainer enters one)")
+        group = mesh.maybe_group(self.axis_name)
+        return stats if group is None else all_reduce_mean(stats, group)
 
     @torch.no_grad()
     def _update_ema(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -617,7 +634,8 @@ class BatchNorm(nn.Module):
         use_running = (not self.training if use_running_stats is None
                        else use_running_stats)
         if (self.fuse_relu and not use_running and self.scale is not None
-                and self.bias is not None and ax == x.dim() - 1):
+                and self.bias is not None and ax == x.dim() - 1
+                and self.axis_name is None):
             y, mean, var = bn_relu_train(x, self.scale.float(),
                                          self.bias.float(),
                                          float(self.epsilon))
@@ -631,8 +649,10 @@ class BatchNorm(nn.Module):
         else:
             axes = tuple(i for i in range(x.dim()) if i != ax)
             mean = xf.mean(dim=axes)
-            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(),
-                              min=0.0)
+            mean2 = xf.square().mean(dim=axes)
+            if self.axis_name is not None:
+                mean, mean2 = self._sync(torch.stack([mean, mean2]))
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
             if self.training:
                 self._update_ema(mean, var)
         inv = torch.rsqrt(var.float() + self.epsilon)

@@ -19,7 +19,9 @@
   the resilience event stream) and MFUMeter / analytic FLOPs helpers
   for `ptpu_train_mfu`;
 - `devicemem` — DeviceMemoryMonitor: per-device in-use and peak
-  gauges from the CUDA caching allocator, live tensors on the CPU.
+  gauges from the CUDA caching allocator, live tensors on the CPU;
+- `straggler` — StragglerDetector: the slow dp worker by its input
+  wait, over the workers' scrape bodies.
 """
 
 from paddle_tpu_torch.obs.metrics import (
@@ -54,6 +56,7 @@ from paddle_tpu_torch.obs.goodput import (
     resolve_peak_flops,
 )
 from paddle_tpu_torch.obs.devicemem import DeviceMemoryMonitor
+from paddle_tpu_torch.obs.straggler import StragglerDetector
 
 __all__ = [
     "DEFAULT_BUCKETS", "Counter", "Gauge", "Histogram",
@@ -65,5 +68,5 @@ __all__ = [
     "FlightRecorder",
     "GoodputLedger", "MFUMeter", "causal_lm_step_flops", "param_count",
     "resolve_peak_flops",
-    "DeviceMemoryMonitor",
+    "DeviceMemoryMonitor", "StragglerDetector",
 ]

@@ -40,9 +40,10 @@ def _live_bytes(dev: torch.device) -> int:
             if obj.device != dev:
                 continue
             storage = obj.untyped_storage()
+            ptr = storage.data_ptr()
         except (RuntimeError, NotImplementedError, ReferenceError):
-            continue               # meta, sparse or freed objects
-        seen[storage.data_ptr()] = storage.nbytes()
+            continue     # meta, sparse, freed or fake (traced) tensors
+        seen[ptr] = storage.nbytes()
     return sum(seen.values())
 
 

@@ -5,7 +5,7 @@ and `stitch_fragments` are copies). `now_us` is a copy of
 paddle_tpu/profiler/profiler.py's clock and `Timeline` of
 paddle_tpu/profiler/timeline.py's merger, so traces of either package
 share one epoch-anchored timeline and stitch into one trace. The port
-records no host profiler spans yet (`profiler/` is ROADMAP.md item 10),
+records no host profiler spans yet (`profiler/` is ROADMAP.md item 10c),
 so `merged_chrome_trace`'s "engine host" process carries only its
 process row — what JAX's gives when its profiler was not started.
 

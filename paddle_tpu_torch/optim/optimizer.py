@@ -72,6 +72,12 @@ class Optimizer(torch.optim.Optimizer):
         self.grad_clip = grad_clip
         self.regularization = regularization
         self.step_count = 0
+        # norm clipping's hook: (params, squared sums of their gradients)
+        # -> the squared sums of the whole gradients. None on one device;
+        # MeshTrainer sums a shard's over the ranks holding its leaf
+        self.sum_sq: Optional[Callable[
+            [List[torch.Tensor], List[torch.Tensor]],
+            List[torch.Tensor]]] = None
 
     def init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         """JAX's `init_slots` for one parameter: float32 zeros under each
@@ -105,13 +111,19 @@ class Optimizer(torch.optim.Optimizer):
             if kind == "value":
                 grads = [torch.clamp(g, -val, val) for g in grads]
             elif kind == "norm":
-                grads = [g * _clip_factor(val, torch.sqrt(g.square().sum()))
-                         for g in grads]
+                sq = self._sum_sq(params, [g.square().sum() for g in grads])
+                grads = [g * _clip_factor(val, torch.sqrt(s))
+                         for g, s in zip(grads, sq)]
             else:
-                gn = torch.sqrt(sum(g.float().square().sum() for g in grads))
+                gn = torch.sqrt(sum(self._sum_sq(
+                    params, [g.float().square().sum() for g in grads])))
                 factor = _clip_factor(val, gn)
                 grads = [g * factor for g in grads]
         return grads
+
+    def _sum_sq(self, params: List[torch.Tensor],
+                sq: List[torch.Tensor]) -> List[torch.Tensor]:
+        return sq if self.sum_sq is None else self.sum_sq(params, sq)
 
     @torch.no_grad()
     def step(self, closure=None):

@@ -21,14 +21,51 @@ Gloo carries host tensors: a gloo group given CUDA tensors copies them
 to host memory, runs the collective there and copies the result back.
 It does so always, by design, so a gloo data plane has one code path
 whatever the devices of its ranks.
+
+Training differentiates through collectives, which JAX's partitioner
+transposes for it. The port writes each transpose down as a
+`torch.autograd.Function` (the trainer's contract,
+parallel/trainer.py):
+
+| function           | forward               | backward                      |
+|--------------------|-----------------------|-------------------------------|
+| copy_to_axis       | identity              | all-reduce sum                |
+| reduce_from_axis   | all-reduce sum        | identity                      |
+| all_reduce_mean    | all-reduce mean       | all-reduce mean               |
+| gather_for_use     | all-gather            | batch axis: reduce-scatter    |
+|                    |                       | mean; else the rank's slice   |
+| reduce_scatter_sum | reduce-scatter sum    | all-gather / axis size        |
+
+`all_reduce_buckets` and `gather_for_use` move many tensors in flat
+buckets, one collective a bucket, both ways: on gloo each collective
+stages through host memory, so the number of calls is the cost.
+`STATS` counts every
+collective call of the process and its host wall time (on gloo the
+call returns when the result is back; on nccl it returns once queued).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import time
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+# every collective call of the process: {"calls", "seconds"}
+STATS: Dict[str, float] = {"calls": 0, "seconds": 0.0}
+
+# the bytes of one flat bucket (all_reduce_buckets, gather_for_use): the
+# LM's 141 MB of f32 gradients (chip_smoke.py's mesh_train) go in 5
+# calls, and a bucket's copy in host memory (gloo) stays at tens of MB
+BUCKET_BYTES = 32 << 20
+
+
+def _timed(work, t0: float) -> None:
+    work.wait()
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
+
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -70,10 +107,11 @@ def all_reduce(x: torch.Tensor, axis: AxisGroup,
     all_reduce_op_handle.cc:103)."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unknown reduce op {op!r}")
+    t0 = time.perf_counter()
     buf = axis._wire(x)
     opts = dist.AllreduceOptions()
     opts.reduceOp = _REDUCE_OPS[op]
-    axis.pg.allreduce([buf], opts).wait()
+    _timed(axis.pg.allreduce([buf], opts), t0)
     if op == "mean":
         buf = buf / axis.size
     return buf.to(x.device)
@@ -83,9 +121,10 @@ def all_gather(x: torch.Tensor, axis: AxisGroup, axis_dim: int = 0,
                tiled: bool = True) -> torch.Tensor:
     """Every rank's `x` in rank order: concatenated along `axis_dim`
     when `tiled`, else stacked on a new leading axis at `axis_dim`."""
+    t0 = time.perf_counter()
     buf = axis._wire(x)
     outs = [torch.empty_like(buf) for _ in range(axis.size)]
-    axis.pg.allgather([outs], [buf]).wait()
+    _timed(axis.pg.allgather([outs], [buf]), t0)
     out = (torch.cat(outs, dim=axis_dim) if tiled
            else torch.stack(outs, dim=axis_dim))
     return out.to(x.device)
@@ -94,26 +133,37 @@ def all_gather(x: torch.Tensor, axis: AxisGroup, axis_dim: int = 0,
 def reduce_scatter(x: torch.Tensor, axis: AxisGroup, axis_dim: int = 0,
                    op: str = "sum") -> torch.Tensor:
     """This rank's part (along `axis_dim`, in rank order) of the
-    reduction over ranks (ReduceOpHandle, reduce_op_handle.cc:296). Gloo
-    has no reduce-scatter, so every backend takes it as an all_reduce
-    followed by the rank's part: the same values."""
+    reduction over ranks (ReduceOpHandle, reduce_op_handle.cc:296): one
+    ncclReduceScatter on nccl; gloo has no reduce-scatter, so there it is
+    an all_reduce followed by the rank's part, the same values."""
     if op not in ("sum", "mean"):
         raise ValueError(f"unknown reduce op {op!r}")
     if x.shape[axis_dim] % axis.size:
         raise ValueError(f"dim {axis_dim} of {tuple(x.shape)} does not "
                          f"split over {axis.size} ranks")
-    return all_reduce(x, axis, op).chunk(axis.size, dim=axis_dim)[
-        axis.rank].contiguous()
+    if axis.backend != "nccl":
+        return all_reduce(x, axis, op).chunk(axis.size, dim=axis_dim)[
+            axis.rank].contiguous()
+    t0 = time.perf_counter()
+    buf = axis._wire(x.movedim(axis_dim, 0))
+    out = buf.new_empty((buf.shape[0] // axis.size, *buf.shape[1:]))
+    opts = dist.ReduceScatterOptions()
+    opts.reduceOp = dist.ReduceOp.SUM
+    _timed(axis.pg._reduce_scatter_base(out, buf, opts), t0)
+    if op == "mean":
+        out = out / axis.size
+    return out.movedim(0, axis_dim).contiguous()
 
 
 def broadcast(x: torch.Tensor, axis: AxisGroup,
               root: int = 0) -> torch.Tensor:
     """Every rank gets `root`'s `x` (ncclBcast,
     broadcast_op_handle.cc:114)."""
+    t0 = time.perf_counter()
     buf = axis._wire(x)
     opts = dist.BroadcastOptions()
     opts.rootRank = root
-    axis.pg.broadcast([buf], opts).wait()
+    _timed(axis.pg.broadcast([buf], opts), t0)
     return buf.to(x.device)
 
 
@@ -134,6 +184,172 @@ def ppermute(x: torch.Tensor, axis: AxisGroup,
     return out.to(x.device)
 
 
+def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The indices of `tensors` in buckets of one device and dtype, each
+    closed once it holds BUCKET_BYTES or more."""
+    groups: Dict[Tuple, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    out: List[List[int]] = []
+    for idx in groups.values():
+        bucket: List[int] = []
+        size = 0
+        for i in idx:
+            bucket.append(i)
+            size += tensors[i].numel() * tensors[i].element_size()
+            if size >= BUCKET_BYTES:
+                out.append(bucket)
+                bucket, size = [], 0
+        if bucket:
+            out.append(bucket)
+    return out
+
+
+def all_reduce_buckets(tensors: Sequence[torch.Tensor], axis: AxisGroup,
+                       op: str = "mean") -> List[torch.Tensor]:
+    """The all_reduce of every tensor of `tensors`, in flat buckets of up
+    to BUCKET_BYTES of one device and dtype: one collective a bucket.
+    Returns new tensors in the given order."""
+    out: List[torch.Tensor] = [None] * len(tensors)
+    for bucket in _buckets(tensors):
+        flat = all_reduce(torch.cat(
+            [tensors[k].reshape(-1) for k in bucket]), axis, op)
+        for k, part in zip(bucket, flat.split(
+                [tensors[k].numel() for k in bucket])):
+            out[k] = part.view_as(tensors[k])
+    return out
+
+
+# -- differentiable collectives (the trainer's contract) ---------------------
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce(x, axis, "mean")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis, "mean"), None
+
+
+class _GatherForUse(torch.autograd.Function):
+    """Shards of one dtype gathered over `axis` through one flat buffer:
+    forward one all-gather, backward one reduce-scatter mean (a batch
+    axis) or the rank's own slice. Rank r's part of a leaf is row r's
+    span of the buffer, contiguous, so it is viewed, never copied."""
+
+    @staticmethod
+    def forward(ctx, axis, dims, batch, *xs):
+        ctx.axis, ctx.dims, ctx.batch = axis, dims, batch
+        ctx.shapes = [x.shape for x in xs]
+        rows = all_gather(torch.cat([x.reshape(-1) for x in xs]), axis,
+                          tiled=False)                    # [ranks, N]
+        outs, off = [], 0
+        for x, d in zip(xs, dims):
+            n = x.numel()
+            outs.append(torch.cat([rows[r, off:off + n].view(x.shape)
+                                   for r in range(axis.size)], d))
+            off += n
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        axis = ctx.axis
+        if ctx.batch:
+            rows = gs[0].new_empty((axis.size,
+                                    sum(s.numel() for s in ctx.shapes)))
+            off = 0
+            for g, d, s in zip(gs, ctx.dims, ctx.shapes):
+                for r, part in enumerate(g.chunk(axis.size, d)):
+                    rows[r, off:off + s.numel()].view(s).copy_(part)
+                off += s.numel()
+            mine = reduce_scatter(rows, axis, 0, "mean")[0]
+        else:
+            mine = torch.cat([g.chunk(axis.size, d)[axis.rank].reshape(-1)
+                              for g, d in zip(gs, ctx.dims)])
+        parts = mine.split([s.numel() for s in ctx.shapes])
+        return (None, None, None,
+                *(p.view(s) for p, s in zip(parts, ctx.shapes)))
+
+
+class _ReduceScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, ctx.dim) / ctx.axis.size, None, None
+
+
+def copy_to_axis(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """`x` as it is; its gradient summed over the axis's ranks: the
+    input of a column-parallel layer, whose ranks each give part of the
+    input's gradient."""
+    return _CopyToAxis.apply(x, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """The sum of every rank's `x`; the gradient passed through as it is:
+    the output of a row-parallel layer, whose consumers are replicated
+    over the axis."""
+    return _ReduceFromAxis.apply(x, axis)
+
+
+def all_reduce_mean(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """The mean of every rank's `x`, with the mean of the ranks'
+    gradients as its gradient (the batch statistics of sync-BN)."""
+    return _AllReduceMean.apply(x, axis)
+
+
+def gather_for_use(xs: Sequence[torch.Tensor], axis: AxisGroup,
+                   dims: Sequence[int], batch: bool) -> List[torch.Tensor]:
+    """Every rank's shard of each tensor of `xs` joined along its dim of
+    `dims` (leaves the forward needs whole), in flat buckets of up to
+    BUCKET_BYTES: one all-gather a bucket. Backward over a batch axis
+    (`batch`, whose ranks hold different data) the reduce-scatter mean
+    of the ranks' gradients, one a bucket; over an axis the compute is
+    replicated on, each rank's own slice."""
+    out: List[torch.Tensor] = [None] * len(xs)
+    for bucket in _buckets(xs):
+        done = _GatherForUse.apply(axis, tuple(dims[k] for k in bucket),
+                                   batch, *(xs[k] for k in bucket))
+        for k, t in zip(bucket, done):
+            out[k] = t
+    return out
+
+
+def reduce_scatter_sum(x: torch.Tensor, axis: AxisGroup,
+                       dim: int = 0) -> torch.Tensor:
+    """This rank's part along `dim` of the sum over ranks; backward the
+    ranks' gradients gathered and divided by the axis size (over a batch
+    axis, each rank's loss is its part of the global mean)."""
+    return _ReduceScatterSum.apply(x, axis, dim)
+
+
 def ring_perm(n: int, shift: int = 1) -> Tuple[Tuple[int, int], ...]:
     return tuple((i, (i + shift) % n) for i in range(n))
 
@@ -152,6 +368,9 @@ def barrier(axis: AxisGroup) -> None:
     all_reduce(torch.zeros(()), axis)
 
 
-__all__ = ["AxisGroup", "all_gather", "all_reduce", "axis_index",
-           "axis_size", "barrier", "broadcast", "ppermute",
-           "reduce_scatter", "ring_perm", "world_group"]
+__all__ = ["AxisGroup", "STATS", "all_gather", "all_reduce",
+           "all_reduce_buckets", "all_reduce_mean", "axis_index",
+           "axis_size", "barrier", "broadcast", "copy_to_axis",
+           "gather_for_use", "ppermute", "reduce_from_axis",
+           "reduce_scatter", "reduce_scatter_sum", "ring_perm",
+           "world_group"]

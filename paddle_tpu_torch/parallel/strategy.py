@@ -7,12 +7,10 @@ Capability-equivalent of the reference's strategy objects:
 - ExecutionStrategy (details/execution_strategy.h:22).
 - DistributeTranspilerConfig (distribute_transpiler.py:130).
 
-The port's single-device `MeshTrainer` honours gradient accumulation,
-the loss scale and the bad-step guard; `reduce_strategy=REDUCE`,
-`sequence_axis` and `remat` need a mesh over several devices or a
-recompute pass and raise NotImplementedError there (ROADMAP.md item
-10). `donate_state` changes nothing in the port: its trainers update
-the state in place.
+The port's `MeshTrainer` (parallel/trainer.py) honours every knob over
+a mesh of ranks but `sequence_axis`, the ring-attention axis of
+ROADMAP.md item 10b, which raises NotImplementedError. `donate_state`
+changes nothing in the port: its trainers update the state in place.
 """
 
 from __future__ import annotations

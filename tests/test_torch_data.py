@@ -434,10 +434,24 @@ def test_data_feeder_casts_and_places():
 
 
 def test_sharding_waits_for_the_meshes():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """sharding= takes a mesh's batch placement (a BatchSharding, as
+    MeshTrainer.batch_sharding() gives): each leaf's rows of this rank
+    on its device; anything else is refused."""
+    from paddle_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh
+    from paddle_tpu_torch.parallel.sharding import BatchSharding
+    with pytest.raises(TypeError, match="BatchSharding"):
         list(data.device_prefetch(iter([np.zeros(2)]), sharding=object()))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="BatchSharding"):
         data.DataFeeder(["x"], sharding=object())
+    mesh = Mesh(np.array(["cpu"] * 4, dtype=object).reshape(
+        1, 2, 2, 1, 1, 1), AXIS_ORDER, rank=2)       # dp 1, fsdp 0
+    sh = BatchSharding(mesh, ("dp", "fsdp"))
+    x = np.arange(16, dtype=np.float32).reshape(8, 2)
+    (got,) = list(data.device_prefetch(iter([x]), sharding=sh))
+    np.testing.assert_array_equal(got.numpy(), x[4:6])
+    fed = data.DataFeeder(["x", "y"], sharding=sh).feed(
+        (x, np.arange(8)))
+    np.testing.assert_array_equal(fed["y"].numpy(), [4, 5])
 
 
 def test_the_port_exports_jax_data_names():

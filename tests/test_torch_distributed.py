@@ -12,8 +12,9 @@ package's:
   reduce_scatter, barrier and the axis helpers, on a gloo group of 4
   CPU ranks — four processes joined by `init_distributed` through the
   PTPU_* environment, spawned together;
-- the tp mesh over a process group, and the other multi-rank axes
-  refusing (item 10);
+- the tp mesh over a private process group, which carries no other
+  multi-rank axis (a mesh over dp, fsdp and tp ranks is the world's:
+  tests/test_torch_parallel.py);
 - the sharding rule tables, spec for spec equal to JAX's, and the local
   slices `shard_variables` / `shard_module` cut.
 """
@@ -194,8 +195,9 @@ def test_collectives_on_four_gloo_ranks():
 
 def test_tp_mesh_spans_the_ranks_of_a_group():
     """A tp axis over two ranks takes their group (two threads of this
-    process here); each rank's mesh names its own device; the other
-    multi-rank axes still refuse, naming item 10."""
+    process here); each rank's mesh names its own device; a private
+    group carries no other multi-rank axis, and a mesh of several ranks
+    without one needs the process's world."""
     import threading
 
     store = serve_store(60.0)
@@ -218,11 +220,12 @@ def test_tp_mesh_spans_the_ranks_of_a_group():
         assert mesh.device == torch.device("cpu")
         with pytest.raises(KeyError):
             mesh.group("dp")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(MeshConfig(tp=2, dp=2), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(MeshConfig(fsdp=2), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="only a tp axis"):
+        make_mesh(MeshConfig(tp=2, dp=2), devices=["cpu"] * 4,
+                  group=meshes[0].group("tp"))
     if not torch.distributed.is_initialized():
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            make_mesh(MeshConfig(fsdp=2), devices=["cpu"] * 2)
         with pytest.raises(RuntimeError, match="init_distributed"):
             make_mesh(MeshConfig(tp=2), devices=["cpu", "cpu"])
 

@@ -1,6 +1,6 @@
 """The port stands alone: no file under paddle_tpu_torch/ and none of the
-card scripts (chip_smoke.py, chip_train_losses.py, chip_ragged_sweep.py)
-imports `jax` or the JAX package `paddle_tpu` (as opposed to
+card scripts (chip_smoke.py, chip_train_losses.py, chip_ragged_sweep.py,
+chip_mesh_nccl.py) imports `jax` or the JAX package `paddle_tpu` (as opposed to
 `paddle_tpu_torch`), and importing the port loads neither."""
 
 import ast
@@ -13,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_train_losses.py",
-    ROOT / "chip_ragged_sweep.py"]
+    ROOT / "chip_ragged_sweep.py", ROOT / "chip_mesh_nccl.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -65,10 +65,15 @@ def test_scan_covers_the_package():
                 "quant/prune.py", "io/inference.py",
                 "testing/quant_cases.py", "data/__init__.py",
                 "data/common.py", "data/readers.py", "data/transforms.py",
-                "data/bucketing.py", "data/datasets.py", "data/feeder.py"):
+                "data/bucketing.py", "data/datasets.py", "data/feeder.py",
+                "parallel/embedding.py", "parallel/launch.py",
+                "parallel/kube.py", "obs/straggler.py",
+                "testing/mesh_cases.py", "testing/dist_worker.py",
+                "testing/elastic_worker.py",
+                "testing/dist_worker_deepfm.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
-            "chip_ragged_sweep.py"} <= names
+            "chip_ragged_sweep.py", "chip_mesh_nccl.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -119,6 +124,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.quant.prune, paddle_tpu_torch.io.inference, "
             "paddle_tpu_torch.testing.quant_cases, paddle_tpu_torch.data, "
             "paddle_tpu_torch.data.datasets, paddle_tpu_torch.data.feeder, "
+            "paddle_tpu_torch.parallel.embedding, "
+            "paddle_tpu_torch.parallel.launch, "
+            "paddle_tpu_torch.parallel.kube, paddle_tpu_torch.obs.straggler, "
+            "paddle_tpu_torch.testing.mesh_cases, "
+            "paddle_tpu_torch.testing.dist_worker, "
+            "paddle_tpu_torch.testing.elastic_worker, "
+            "paddle_tpu_torch.testing.dist_worker_deepfm, "
             "paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
@@ -141,3 +153,22 @@ def test_testing_is_a_package_with_every_name():
     assert all(callable(f) for f in (causal_lm_tree, check_grad, flash_case,
                                      paged_case, write_serving_export,
                                      check_output, numeric_grad))
+
+
+def test_launcher_help_loads_no_jax():
+    """`python -m paddle_tpu_torch.parallel.launch --help` (the entry a
+    user runs a mesh with) loads neither jax nor paddle_tpu."""
+    code = ("import runpy, sys; before = set(sys.modules); "
+            "sys.argv = ['launch', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('paddle_tpu_torch.parallel.launch', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in set(sys.modules) - before "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--share-card" in res.stdout and "--device" in res.stdout

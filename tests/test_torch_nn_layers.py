@@ -410,8 +410,21 @@ def test_batch_norm_options_match_jax():
 
 
 def test_batch_norm_axis_name_waits_for_meshes():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        L.BatchNorm(4, axis_name="dp")
+    """BatchNorm(axis_name=...) needs a current mesh, as JAX's pmean
+    needs a bound axis; on a one-rank mesh the axis spans no ranks and
+    the layer is the plain one (tests/test_torch_parallel.py holds
+    sync-BN over four ranks)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (6, 4)).astype(np.float32))
+    bn = L.BatchNorm(4, axis_name="dp").train()
+    with pytest.raises(NameError, match="unbound axis name"):
+        bn(x)
+    plain = L.BatchNorm(4).train()
+    with make_mesh(devices=["cpu"]):
+        got = bn(x)
+    torch.testing.assert_close(got, plain(x))
+    torch.testing.assert_close(bn.mean, plain.mean)
 
 
 # ------------------------------------------------------ initializers

@@ -423,15 +423,22 @@ def test_power_of_two_loss_scale_is_exact():
 
 
 def test_strategy_knobs_the_port_cannot_honour_raise():
+    """The sequence axis (ring attention) is item 10b and raises; REDUCE
+    and remat build on one rank; a mesh over several ranks needs the
+    process's torch.distributed world."""
     model = _MLP()
     mesh = make_mesh(devices=["cpu"])
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        MeshTrainer(model, Adam(model.parameters(), 1e-2),
+                    lambda *a: None, mesh,
+                    strategy=DistStrategy(sequence_axis="sp"))
     for st in (DistStrategy(reduce_strategy=ReduceStrategy.REDUCE),
-               DistStrategy(sequence_axis="sp"), DistStrategy(remat=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            MeshTrainer(model, Adam(model.parameters(), 1e-2),
-                        lambda *a: None, mesh, strategy=st)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(dp=2, devices=["cpu", "cpu"])
+               DistStrategy(remat=True)):
+        MeshTrainer(_MLP(), Adam(model.parameters(), 1e-2),
+                    lambda *a: None, mesh, strategy=st)
+    if not torch.distributed.is_initialized():
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            make_mesh(dp=2, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="needs 1 devices"):
         make_mesh(devices=["cpu", "cpu"])
 
