@@ -100,7 +100,17 @@ user calls:
   kernels at each rank's 4 heads), each in f32 at 2 layers and bf16 at
   full depth against a single-rank run of the whole batch, then dp=2 x
   fsdp=2 on 4 ranks saving a sharded checkpoint that a fresh world
-  resumes bit for bit.
+  resumes bit for bit;
+- `mesh_parallel`: the sp, pp and ep axes over ranks sharing the card:
+  ring flash attention (causal contiguous, causal zig-zag, non-causal)
+  and Ulysses at the LM's long-context width (B 1 x T 16384, 8 heads of
+  64, bf16) on sp=2, forward and backward — kernels 4, 5 and 6 on each
+  ring block — against one rank's flash on the whole sequence;
+  `PipelinedLM` at the LM's widths (6 stages, f32) on pp=2 under GPipe
+  and 1F1B against one rank's dense Adam steps; the MoE FFN at bench.py's
+  shape (E 8, D 1024, hidden 4096, 8192 tokens, bf16, top-2) on ep=2,
+  masked and all_to_all at three capacity factors, against one rank; a
+  `PipelinedMoELM` on pp=2 x ep=2.
 
 Each kernel's launch count is set to 0 just before its path runs and
 read just after; every path must launch its own kernels and no other. Each phase prints one JSON line; any failed check
@@ -171,6 +181,7 @@ from paddle_tpu_torch.quant.int8_compute import Int8Linear, freeze_int8
 from paddle_tpu_torch.testing import (nn_cases, one_torch_thread, op_cases,
                                       quant_cases)
 from paddle_tpu_torch.testing import mesh_cases as M
+from paddle_tpu_torch.testing import parallel_cases as PC
 from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       RAGGED_ARGS, STEP_ARGS, bert_tree,
                                       causal_lm_tree,
@@ -5027,6 +5038,232 @@ def phase_mesh_train(cfg: dict, device: torch.device, card: dict) -> dict:
     return out
 
 
+# the bf16 kernel bar: 2e-2 of the largest magnitude (the flash
+# phases' bf16 tolerance); f32 runs use the JAX tests' bars
+PAR_BF16_BAR = 2e-2
+# pipelines (f32): losses within 2e-4 relative of the dense steps', the
+# parameters after Adam within 2e-3 (tests/test_pipeline.py:321-328),
+# and the two schedules' losses within 1e-5 relative of each other
+PAR_LOSS_RTOL, PAR_PARAM_ATOL, PAR_SCHEDULE_RTOL = 2e-4, 2e-3, 1e-5
+
+
+def ring_launches(variant: str, rank: int, sp: int) -> int:
+    """Kernel 4, 5 and 6 launches of one forward + backward on `rank`:
+    contiguous causal skips the blocks of later ranks (r + 1 blocks),
+    zig-zag runs three half-blocks at the first step and two after,
+    non-causal every block, Ulysses one flash call."""
+    return {"causal": rank + 1, "zigzag": 3 + 2 * (sp - 1), "full": sp,
+            "ulysses": 1}[variant]
+
+
+def phase_mesh_parallel(cfg: dict, device: torch.device, card: dict) -> dict:
+    """The sp, pp and ep axes (parallel/ring.py, pipeline.py, moe.py)
+    over ranks of parallel/launch.py running the `chip_*` cases of
+    paddle_tpu_torch/testing/parallel_cases.py, in one 2-rank world
+    (sp=2, then pp=2, then ep=2) and one 4-rank world (pp=2 x ep=2):
+
+    - (a) ring flash (causal contiguous and zig-zag, non-causal) and
+      Ulysses at cfg's long-context shape: each rank's o, dq, dk and dv
+      within the bar of plain float32 attention on the whole sequence,
+      computed on the card (the gap to one rank's `flash_attention` on
+      it printed beside); kernels 4, 5 and 6 launched as
+      `ring_launches` says on each rank (counts set to 0 just before);
+    - (b) PipelinedLM on pp=2 under GPipe and 1F1B: the Adam steps'
+      losses within PAR_LOSS_RTOL of one rank's dense steps here, every
+      parameter after them within PAR_PARAM_ATOL, the two schedules'
+      losses within PAR_SCHEDULE_RTOL, and on the card 1F1B's peak
+      below GPipe's;
+    - (c) moe_ffn and moe_ffn_a2a on ep=2 against one rank's moe_ffn:
+      y and the gate's gradient within the bar (a2a where nothing was
+      dropped), a2a against masked at ample capacity, the dropped
+      fraction falling as the capacity grows; PipelinedMoELM on
+      pp=2 x ep=2 (capacity ample, no balance loss): every step's loss
+      within PAR_LOSS_RTOL of one rank's dense Adam steps here, every
+      parameter after them within PAR_PARAM_ATOL.
+
+    Ranks sharing one card time-slice it and stage every collective
+    through host memory: their ms measure that, not scaling."""
+    cuda = device.type == "cuda"
+    pc = cfg["mesh_parallel"]
+    dev2, share2, why2 = _mesh_ranks(cuda, 2)
+    dev4, share4, why4 = _mesh_ranks(cuda, 4)
+    emit({"phase": "mesh_parallel", "part": "placement", "ranks_2": why2,
+          "ranks_4": why4, "device": card["kind"],
+          "nvidia_smi": card["smi"]})
+    tmp = tempfile.mkdtemp(prefix="mesh_parallel_")
+    try:
+        t0 = time.perf_counter()
+        ref_path = os.path.join(tmp, "dense.pt")
+        moe_ref_path = os.path.join(tmp, "dense_moe.pt")
+        dense_losses, final = PC.dense_pipe_steps(pc["pipe"], device)
+        torch.save({k: v.cpu() for k, v in final.items()}, ref_path)
+        moe_losses, final = PC.dense_pipe_steps(pc["moe_lm"], device,
+                                                moe=True)
+        torch.save({k: v.cpu() for k, v in final.items()}, moe_ref_path)
+        del final
+        gc.collect()
+        dense_s = time.perf_counter() - t0
+        env = {"PTPU_PAR": json.dumps(PC.par_conf(
+            pc["ring"], pc["pipe"], pc["moe"], pc["moe_lm"], ref_path,
+            moe_ref_path))}
+        t0 = time.perf_counter()
+        world = PC.run_world(2, ["chip_ring", "chip_pipe", "chip_moe"],
+                             device=dev2, share_card=share2, env=env,
+                             timeout=pc["world_timeout_s"])
+        world_2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_lm = PC.run_world(4, ["chip_moe_lm"], device=dev4,
+                              share_card=share4, env=env,
+                              timeout=pc["world_timeout_s"])["chip_moe_lm"]
+        world_4_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    info = {"device": card["kind"], "nvidia_smi": card["smi"]}
+    out = {"world_2_s": world_2_s, "world_4_s": world_4_s,
+           "dense_pipe_s": dense_s}
+
+    # (a) long context
+    rc = pc["ring"]
+    sp = 2
+    launches = {}
+    for variant in PC.RING_VARIANTS:
+        ranks = world["chip_ring"]
+        rows = []
+        for r, res in enumerate(ranks):
+            got = [int(x) for x in res[f"{variant}/launches"]]
+            want = [ring_launches(variant, r, sp) if cuda else 0] * 3
+            check(got == want, f"mesh_parallel {variant} rank {r}: kernel "
+                               f"4/5/6 launches {got} != {want}")
+            errs = {n: float(res[f"{variant}/err_{n}"])
+                    for n in ("o", "dq", "dk", "dv")}
+            check(max(errs.values()) <= rc["bar"],
+                  f"mesh_parallel {variant} rank {r}: {errs} over "
+                  f"{rc['bar']} of the largest magnitude of plain f32 "
+                  f"attention")
+            rows.append({"rank": r, "launches": dict(zip(FLASH_KERNELS,
+                                                         got)),
+                         "errors_vs_plain_f32": errs,
+                         "errors_vs_whole_flash": {
+                             n: float(res[f"{variant}/err_flash_{n}"])
+                             for n in ("o", "dq", "dk", "dv")},
+                         "fwd_ms": float(res[f"{variant}/fwd_ms"]),
+                         "bwd_ms": float(res[f"{variant}/fwd_bwd_ms"])
+                         - float(res[f"{variant}/fwd_ms"]),
+                         "collective_calls": int(
+                             res[f"{variant}/collective_calls"]),
+                         "collective_s": float(
+                             res[f"{variant}/collective_s"]),
+                         "peak_bytes": int(res[f"{variant}/peak_bytes"])})
+        launches[variant] = [dict(zip(FLASH_KERNELS,
+                                      [int(x) for x in res[
+                                          f"{variant}/launches"]]))
+                             for res in ranks]
+        rep = {"phase": "mesh_parallel", "part": "long_context",
+               "variant": variant, "shape": rc["shape"],
+               "dtype": rc["dtype"], "sp": sp, "bar": rc["bar"],
+               "ranks": rows, **info}
+        emit(rep)
+        out[variant] = rep
+    out["kernel_launches"] = launches
+
+    # (b) the pipeline
+    pcf = pc["pipe"]
+    sched = {}
+    for schedule in ("gpipe", "1f1b"):
+        ranks = world["chip_pipe"]
+        losses = ranks[0][f"{schedule}/losses"]
+        for r, res in enumerate(ranks):
+            gap = float(np.max(np.abs(res[f"{schedule}/losses"]
+                                      - dense_losses)
+                               / np.abs(dense_losses)))
+            check(gap <= PAR_LOSS_RTOL,
+                  f"mesh_parallel {schedule} rank {r}: losses "
+                  f"{res[f'{schedule}/losses'].tolist()} vs dense "
+                  f"{dense_losses} (rel {gap})")
+            pgap = float(res[f"{schedule}/param_gap"])
+            check(pgap <= PAR_PARAM_ATOL,
+                  f"mesh_parallel {schedule} rank {r}: parameters "
+                  f"{pgap} from the dense steps'")
+        sched[schedule] = {
+            "losses": losses.tolist(),
+            "step_ms_median": [_median_ms(res[f"{schedule}/step_ms"])
+                               for res in ranks],
+            "peak_bytes": [int(res[f"{schedule}/peak_bytes"])
+                           for res in ranks],
+            "collective_calls_per_step": [
+                int(res[f"{schedule}/collective_calls"]) / pcf["steps"]
+                for res in ranks],
+            "collective_ms_per_step": [
+                float(res[f"{schedule}/collective_s"]) * 1e3 / pcf["steps"]
+                for res in ranks],
+            "param_gap": [float(res[f"{schedule}/param_gap"])
+                          for res in ranks]}
+    a, b = (np.asarray(sched[s]["losses"]) for s in ("gpipe", "1f1b"))
+    check(float(np.max(np.abs(a - b) / np.abs(a))) <= PAR_SCHEDULE_RTOL,
+          f"mesh_parallel: 1f1b losses {b.tolist()} vs gpipe {a.tolist()}")
+    if cuda:
+        check(max(sched["1f1b"]["peak_bytes"])
+              < max(sched["gpipe"]["peak_bytes"]),
+              f"mesh_parallel: 1f1b peak {sched['1f1b']['peak_bytes']} not "
+              f"below gpipe's {sched['gpipe']['peak_bytes']}")
+    rep = {"phase": "mesh_parallel", "part": "pipeline", "pp": 2,
+           "stages": pcf["stages"], "microbatches": pcf["m"],
+           "batch": pcf["batch"], "seq": pcf["seq"], "steps": pcf["steps"],
+           "dense_losses": dense_losses, **sched, **info}
+    emit(rep)
+    out["pipeline"] = rep
+
+    # (c) experts
+    mc = pc["moe"]
+    ranks = world["chip_moe"]
+    runs = ["masked"] + [f"a2a_cf{cf}" for cf in mc["cfs"]]
+    moe_rows = {}
+    for name in runs:
+        dropped = float(ranks[0][f"{name}/dropped"])
+        errs = [{"y": float(res[f"{name}/err_y"]),
+                 "gate": float(res[f"{name}/err_gate"])} for res in ranks]
+        if dropped == 0.0:
+            check(max(max(e.values()) for e in errs) <= mc["bar"],
+                  f"mesh_parallel moe {name}: {errs} over {mc['bar']}")
+        moe_rows[name] = {"dropped_fraction": dropped, "errors": errs,
+                          "ms": [float(res[f"{name}/ms"]) for res in ranks]}
+    drops = [moe_rows[f"a2a_cf{cf}"]["dropped_fraction"] for cf in mc["cfs"]]
+    check(drops == sorted(drops, reverse=True) and drops[-1] == 0.0,
+          f"mesh_parallel moe: dropped fractions {drops} over capacity "
+          f"factors {mc['cfs']}")
+    a2a_gap = max(float(res["a2a_vs_masked"]) for res in ranks)
+    check(a2a_gap <= mc["bar"], f"mesh_parallel moe: a2a vs masked "
+                                f"{a2a_gap} at ample capacity")
+    ml = pc["moe_lm"]
+    for r, res in enumerate(moe_lm):
+        gap = float(np.max(np.abs(res["losses"] - moe_losses)
+                           / np.abs(moe_losses)))
+        check(gap <= PAR_LOSS_RTOL,
+              f"mesh_parallel moe_lm rank {r}: losses "
+              f"{res['losses'].tolist()} vs dense {moe_losses} (rel {gap})")
+        check(float(res["param_gap"]) <= PAR_PARAM_ATOL,
+              f"mesh_parallel moe_lm rank {r}: parameters "
+              f"{float(res['param_gap'])} from the dense steps'")
+    rep = {"phase": "mesh_parallel", "part": "experts", "ep": 2,
+           "shape": {k: mc[k] for k in ("experts", "d", "hid", "tokens",
+                                        "k", "dtype")},
+           "runs": moe_rows, "a2a_vs_masked": a2a_gap,
+           "moe_lm": {"mesh": "pp=2 x ep=2", "experts": ml["experts"],
+                      "losses": moe_lm[0]["losses"].tolist(),
+                      "dense_losses": moe_losses,
+                      "param_gap": [float(res["param_gap"])
+                                    for res in moe_lm],
+                      "step_ms_median": [_median_ms(res["step_ms"])
+                                         for res in moe_lm]},
+           **info}
+    emit(rep)
+    out["experts"] = rep
+    emit({"phase": "mesh_parallel", "part": "seconds",
+          "dense_pipe_s": dense_s, "world_2_s": world_2_s,
+          "world_4_s": world_4_s})
+    return out
+
+
 def full_config() -> dict:
     return dict(
         lm=LM_BASE, vocab=LM_VOCAB, max_len=LM_MAX_LEN, dtype=torch.bfloat16,
@@ -5156,7 +5393,27 @@ def full_config() -> dict:
                        lr=0.05),
                   dict(name="bf16", dtype="bfloat16",
                        layers=LM_BASE["num_layers"], batch=4, seq=2048,
-                       steps=4)]))
+                       steps=4)]),
+        # mesh_parallel: (a) the lm_longctx widths (models.py:150-156,
+        # LM_BASE: 8 heads of 64) at B 1 x T 16384, bf16; (b) PipelinedLM
+        # at LM_BASE's widths, 6 stages, f32, B 8 x T 1024, 4
+        # microbatches, 3 Adam steps; (c) bench.py:249's MoE shape, and a
+        # PipelinedMoELM with 4 experts a stage, B 4 x T 1024, 2 steps
+        # (top-2 of 4 at the default capacity factor 2.0: a capacity of
+        # every token, so nothing drops and the dense steps are exact)
+        mesh_parallel=dict(
+            world_timeout_s=600,
+            ring=dict(shape=[1, 16384, 8, 64], dtype="bfloat16", seed=SEED,
+                      iters=3, bar=PAR_BF16_BAR),
+            pipe=dict(vocab=LM_VOCAB, d_model=512, n_heads=8, d_ff=2048,
+                      stages=6, max_len=LM_MAX_LEN, batch=8, seq=1024, m=4,
+                      steps=3, lr=1e-4, seed=SEED),
+            moe=dict(experts=8, d=1024, hid=4096, tokens=8192,
+                     dtype="bfloat16", k=2, cfs=[1.0, 1.25, 2.0, 4.0],
+                     iters=3, bar=PAR_BF16_BAR, seed=SEED),
+            moe_lm=dict(vocab=LM_VOCAB, d_model=512, n_heads=8, d_ff=2048,
+                        stages=6, max_len=LM_MAX_LEN, experts=4, batch=4,
+                        seq=1024, m=4, steps=2, lr=1e-4, seed=SEED)))
 
 
 def tiny_config() -> dict:
@@ -5226,7 +5483,20 @@ def tiny_config() -> dict:
                        seq=16, steps=2, params=True, optimizer="sgd",
                        lr=0.05),
                   dict(name="big", dtype="float32", layers=2, batch=4,
-                       seq=32, steps=2)]))
+                       seq=32, steps=2)]),
+        mesh_parallel=dict(
+            world_timeout_s=240,
+            ring=dict(shape=[1, 64, 2, 16], dtype="float32", seed=SEED,
+                      iters=1, bar=1e-4),
+            pipe=dict(vocab=96, d_model=32, n_heads=4, d_ff=64, stages=2,
+                      max_len=64, batch=4, seq=16, m=2, steps=2, lr=1e-3,
+                      seed=SEED),
+            moe=dict(experts=4, d=16, hid=32, tokens=64, dtype="float32",
+                     k=2, cfs=[1.0, 1.25, 2.0], iters=1, bar=1e-4,
+                     seed=SEED),
+            moe_lm=dict(vocab=96, d_model=32, n_heads=4, d_ff=64, stages=2,
+                        max_len=64, experts=4, batch=4, seq=16, m=2,
+                        steps=2, lr=1e-3, seed=SEED)))
 
 
 @contextlib.contextmanager
@@ -5302,6 +5572,7 @@ def main(argv=None) -> int:
         export = phase_export(cfg, tree, device, card)
         phase_book(cfg, device, card)
         mesh = phase_mesh_train(cfg, device, card)
+        par = phase_mesh_parallel(cfg, device, card)
 
         rows = []
         for name, (source, replaces, _) in KERNEL_ROWS.items():
@@ -5335,6 +5606,9 @@ def main(argv=None) -> int:
             if name in FLASH_KERNELS:
                 rows[-1]["launches_mesh_tp_per_rank"] = [
                     r[name] for r in mesh["tp"]["kernel_launches"]]
+                rows[-1]["launches_mesh_parallel_per_rank"] = {
+                    v: [r[name] for r in ranks]
+                    for v, ranks in par["kernel_launches"].items()}
                 rows[-1]["launches_bert"] = bert["kernel_launches"][name]
                 rows[-1]["launches_seq2seq"] = \
                     seq2seq["kernel_launches"][name]

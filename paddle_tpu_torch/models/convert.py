@@ -13,6 +13,17 @@ buffers, by path. The transformers' paths:
     params/ln_f/{scale,bias}
     params/head/{weight,bias}                (untied head only)
 
+The pipelined LMs' (parallel/pipeline.py; the stage stacks [S, ...],
+sharded over pp on a mesh, carry as their whole leaves or a rank's
+pieces of them, as any leaf):
+
+    params/{embed [V, D], pos [max_len, D], lnf_s, lnf_b, head [D, V]}
+    params/stages/{w_qkv [S, D, 3D] (head-major), w_o [S, D, D],
+                   ln1_s, ln1_b, ln2_s, ln2_b [S, D],
+                   w1 [S, D, F], b1, w2 [S, F, D], b2}     (PipelinedLM)
+    params/stages/{gate [S, D, E], moe_w1 [S, E, D, F],
+                   moe_w2 [S, E, F, D]}                  (PipelinedMoELM)
+
 The vision, NLP and detection models' (same rule, JAX's list children
 `name_{i}` being the port's `nn.ModuleList` items `name.{i}`):
 

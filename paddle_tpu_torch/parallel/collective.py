@@ -15,6 +15,7 @@ JAX counterpart returns a new array:
 | psum_scatter           | reduce_scatter (an all_reduce, then a part)|
 | masked psum            | broadcast from `root`                      |
 | ppermute               | ppermute (isend / irecv pairs)             |
+| all_to_all (tiled)     | all_to_all (one all_to_all_single)         |
 | axis_index / psum(1)   | axis_index / axis_size                     |
 
 Gloo carries host tensors: a gloo group given CUDA tensors copies them
@@ -35,6 +36,9 @@ parallel/trainer.py):
 | gather_for_use     | all-gather            | batch axis: reduce-scatter    |
 |                    |                       | mean; else the rank's slice   |
 | reduce_scatter_sum | reduce-scatter sum    | all-gather / axis size        |
+| broadcast          | `root`'s x            | all-reduce sum, kept by root  |
+| ppermute           | send by `perm`        | send by the inverse `perm`    |
+| all_to_all         | parts by rank         | the reverse all_to_all        |
 
 `all_reduce_buckets` and `gather_for_use` move many tensors in flat
 buckets, one collective a bucket, both ways: on gloo each collective
@@ -46,6 +50,7 @@ call returns when the result is back; on nccl it returns once queued).
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -155,10 +160,7 @@ def reduce_scatter(x: torch.Tensor, axis: AxisGroup, axis_dim: int = 0,
     return out.movedim(0, axis_dim).contiguous()
 
 
-def broadcast(x: torch.Tensor, axis: AxisGroup,
-              root: int = 0) -> torch.Tensor:
-    """Every rank gets `root`'s `x` (ncclBcast,
-    broadcast_op_handle.cc:114)."""
+def _broadcast(x: torch.Tensor, axis: AxisGroup, root: int) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = axis._wire(x)
     opts = dist.BroadcastOptions()
@@ -167,21 +169,109 @@ def broadcast(x: torch.Tensor, axis: AxisGroup,
     return buf.to(x.device)
 
 
+def _ppermute(x: torch.Tensor, axis: AxisGroup,
+              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    t0 = time.perf_counter()
+    buf = axis._wire(x)
+    out = torch.zeros_like(buf)
+    peer = functools.partial(dist.get_global_rank, axis.pg)
+    # on nccl one ncclGroupStart/End around every pair: posted apart, a
+    # ring whose ranks all send first can hang on the P2P stream (gloo
+    # posts them one by one, none waited on before all are posted)
+    ops = ([dist.P2POp(dist.isend, buf, peer(dst), axis.pg)
+            for src, dst in perm if src == axis.rank]
+           + [dist.P2POp(dist.irecv, out, peer(src), axis.pg)
+              for src, dst in perm if dst == axis.rank])
+    works = dist.batch_isend_irecv(ops) if ops else []
+    for w in works:
+        w.wait()
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
+    return out.to(x.device)
+
+
+def _all_to_all(x: torch.Tensor, axis: AxisGroup, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    n = axis.size
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dim {split_axis} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    t0 = time.perf_counter()
+    # rank j's part (along split_axis) leads, so one flat exchange
+    # sends part j to rank j
+    parts = x.movedim(split_axis, 0)
+    parts = parts.reshape((n, parts.shape[0] // n) + tuple(parts.shape[1:]))
+    buf = axis._wire(parts)
+    out = torch.empty_like(buf)
+    _timed(dist.all_to_all_single(out, buf, group=axis.pg, async_op=True),
+           t0)
+    out = out.to(x.device)
+    got = [out[j].movedim(0, split_axis) for j in range(n)]
+    return torch.cat(got, dim=concat_axis)
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, root):
+        ctx.axis, ctx.root = axis, root
+        return _broadcast(x, axis, root)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce(g, ctx.axis)
+        return (total if ctx.axis.rank == ctx.root
+                else torch.zeros_like(total)), None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.axis, ctx.perm = axis, perm
+        return _ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((dst, src) for src, dst in ctx.perm)
+        return _ppermute(g, ctx.axis, inverse), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis):
+        ctx.cfg = (axis, concat_axis, split_axis)
+        return _all_to_all(x, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.cfg), None, None, None
+
+
+def broadcast(x: torch.Tensor, axis: AxisGroup,
+              root: int = 0) -> torch.Tensor:
+    """Every rank gets `root`'s `x` (ncclBcast,
+    broadcast_op_handle.cc:114; JAX's masked psum). Differentiable: the
+    transpose of the masked psum gives `root` the sum of every rank's
+    gradient and the other ranks zeros."""
+    return _Broadcast.apply(x, axis, root)
+
+
 def ppermute(x: torch.Tensor, axis: AxisGroup,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Point-to-point shifts: for each (src, dst) of `perm`, rank dst
     gets rank src's `x`; a rank that no pair names as dst gets zeros, as
-    `lax.ppermute` gives. Sends are posted before receives, so a ring
-    does not deadlock."""
-    buf = axis._wire(x)
-    out = torch.zeros_like(buf)
-    works = [axis.pg.send([buf], dst, 0) for src, dst in perm
-             if src == axis.rank]
-    works += [axis.pg.recv([out], src, 0) for src, dst in perm
-              if dst == axis.rank]
-    for w in works:
-        w.wait()
-    return out.to(x.device)
+    `lax.ppermute` gives. Every send and receive is posted before any is
+    waited on (on nccl in one group), so a ring does not deadlock.
+    Differentiable: the gradient goes back by the inverse permutation."""
+    return _Ppermute.apply(x, axis, tuple(perm))
+
+
+def all_to_all(x: torch.Tensor, axis: AxisGroup, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """`lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`:
+    `x` cut into axis-size parts along `split_axis`, part j sent to rank
+    j, and the parts received joined along `concat_axis` in rank order.
+    Differentiable: the gradient goes back by the reverse all_to_all."""
+    return _AllToAll.apply(x, axis, split_axis, concat_axis)
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
@@ -351,6 +441,8 @@ def reduce_scatter_sum(x: torch.Tensor, axis: AxisGroup,
 
 
 def ring_perm(n: int, shift: int = 1) -> Tuple[Tuple[int, int], ...]:
+    """The ring's pairs for `ppermute`: rank i's value to rank i + shift
+    (mod n)."""
     return tuple((i, (i + shift) % n) for i in range(n))
 
 
@@ -368,7 +460,7 @@ def barrier(axis: AxisGroup) -> None:
     all_reduce(torch.zeros(()), axis)
 
 
-__all__ = ["AxisGroup", "STATS", "all_gather", "all_reduce",
+__all__ = ["AxisGroup", "STATS", "all_gather", "all_reduce", "all_to_all",
            "all_reduce_buckets", "all_reduce_mean", "axis_index",
            "axis_size", "barrier", "broadcast", "copy_to_axis",
            "gather_for_use", "ppermute", "reduce_from_axis",

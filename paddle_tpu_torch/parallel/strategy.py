@@ -8,9 +8,10 @@ Capability-equivalent of the reference's strategy objects:
 - DistributeTranspilerConfig (distribute_transpiler.py:130).
 
 The port's `MeshTrainer` (parallel/trainer.py) honours every knob over
-a mesh of ranks but `sequence_axis`, the ring-attention axis of
-ROADMAP.md item 10b, which raises NotImplementedError. `donate_state`
-changes nothing in the port: its trainers update the state in place.
+a mesh of ranks. `sequence_axis` is accepted and read by nothing, as in
+JAX: the sp axis is the loss function's business (`pipelined_lm_loss`'s
+`sp_axis`). `donate_state` changes nothing in the port: its trainers
+update the state in place.
 """
 
 from __future__ import annotations

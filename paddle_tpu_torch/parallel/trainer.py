@@ -28,9 +28,11 @@ keeps the partitioner's contract by hand:
    for a gathered embedding) the rank's own slice, with no sum
    (collective.gather_for_use).
 5. Megatron tp inside the model: a layer that declares `local_specs()`
-   (the transformer's attention and FFN, ShardedEmbedding) consumes
-   those parameters at their local width; the rules must place them so
-   (`transformer_tp_rules`), or the trainer refuses. Column-parallel
+   (the transformer's attention and FFN, ShardedEmbedding, the stage
+   stacks of parallel/pipeline.py) consumes those parameters at their
+   local width; the rules must place them so (`transformer_tp_rules`,
+   `pipeline_rules`), or the trainer refuses. A stage stack is consumed
+   at ("pp", ...): a rank keeps its v stages and gathers nothing. Column-parallel
    inputs go through copy_to_axis (identity forward, all-reduce-sum
    backward), row-parallel outputs through reduce_from_axis (all-reduce
    sum forward, identity backward), with the row bias added once after
@@ -43,7 +45,11 @@ keeps the partitioner's contract by hand:
    host reads it, so every rank skips the same step.
 
 The layers find the mesh through `current_mesh()`: train_step and
-eval_step run inside `with mesh:`.
+eval_step run inside `with mesh:`. The sp, pp and ep axes are the loss
+function's business (parallel/pipeline.py's `pipelined_lm_loss` and
+`pipelined_moe_lm_loss`): it adds the sums over them that its
+replicated leaves need, and `sequence_axis` is read by nothing, as in
+JAX.
 
 On top of the port's `Trainer` (`train_step(batch, generator=None)`,
 `state()`, `load_state()`, `eval_step(batch)`), the strategy's knobs:
@@ -109,9 +115,6 @@ from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.log import resilience_event
 from paddle_tpu_torch.utils.rng import fold_in
 from paddle_tpu_torch.utils.tree import flatten_with_keys, map_leaves, nest
-
-_ITEM_10B = "the sp, pp and ep axes come with ROADMAP.md item 10b"
-
 
 def _signature(batch) -> Tuple:
     """The batch's (key, shape, dtype) per leaf: what JAX keys its jit
@@ -229,11 +232,6 @@ class MeshTrainer(Trainer):
             rules = (fsdp_rules() if st.reduce_strategy is
                      ReduceStrategy.REDUCE else ShardingRules())
         self.rules = rules
-        if st.sequence_axis is not None:
-            raise NotImplementedError(f"sequence_axis: {_ITEM_10B}")
-        later = self.mesh.wide(("sp", "pp", "ep"))
-        if later:
-            raise NotImplementedError(f"mesh axes {list(later)}: {_ITEM_10B}")
         dev = self.mesh.device
         stray = [n for n, p in module.named_parameters() if p.device != dev]
         if stray:
@@ -301,7 +299,8 @@ class MeshTrainer(Trainer):
                         f"{plan.path}: the model consumes dim {dim} "
                         f"sharded over {use!r}, the rules place it as "
                         f"{plan.spec} (tensor parallelism needs "
-                        "transformer_tp_rules)")
+                        "transformer_tp_rules, pipeline stages "
+                        "pipeline_rules or pipeline_moe_rules)")
                 if got is None or use is not None:
                     continue
                 for axis in reversed(_entry_axes(got)):

@@ -70,7 +70,9 @@ def test_scan_covers_the_package():
                 "parallel/kube.py", "obs/straggler.py",
                 "testing/mesh_cases.py", "testing/dist_worker.py",
                 "testing/elastic_worker.py",
-                "testing/dist_worker_deepfm.py"):
+                "testing/dist_worker_deepfm.py", "parallel/ring.py",
+                "parallel/moe.py", "parallel/pipeline.py",
+                "testing/parallel_cases.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py", "chip_mesh_nccl.py"} <= names

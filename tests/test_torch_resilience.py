@@ -423,15 +423,16 @@ def test_power_of_two_loss_scale_is_exact():
 
 
 def test_strategy_knobs_the_port_cannot_honour_raise():
-    """The sequence axis (ring attention) is item 10b and raises; REDUCE
-    and remat build on one rank; a mesh over several ranks needs the
-    process's torch.distributed world."""
+    """The sequence axis is accepted and read by nothing, as in JAX (the
+    sp axis is the loss function's); REDUCE and remat build on one rank;
+    a mesh over several ranks needs the process's torch.distributed
+    world."""
     model = _MLP()
     mesh = make_mesh(devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        MeshTrainer(model, Adam(model.parameters(), 1e-2),
-                    lambda *a: None, mesh,
-                    strategy=DistStrategy(sequence_axis="sp"))
+    tr = MeshTrainer(model, Adam(model.parameters(), 1e-2),
+                     lambda *a: None, mesh,
+                     strategy=DistStrategy(sequence_axis="sp"))
+    assert tr.strategy.sequence_axis == "sp"
     for st in (DistStrategy(reduce_strategy=ReduceStrategy.REDUCE),
                DistStrategy(remat=True)):
         MeshTrainer(_MLP(), Adam(model.parameters(), 1e-2),
