@@ -18,6 +18,12 @@ user calls:
   traces one more step for the card's busy time by kernel group;
   `train_vs_plain` holds one f32 step through the kernels against the
   same step through their plain versions;
+- `files`: the same bf16 model trained straight from two slot files by
+  `train_from_files` (the native DataFeed, built with g++ from the
+  checkout, parsing on two threads; `to_padded`; `device_prefetch`) —
+  the flash kernels again, from file-fed batches that must equal the
+  written rows; then RecordIO files written and read back natively, a
+  DLPack round trip and `memory_stats` on the card;
 
 - `engine`: a `ServeEngine` (bf16) serving two waves that share a
   prefix — the fp ragged kernel, inside the step's CUDA graph, which
@@ -145,8 +151,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from paddle_tpu_torch import data, optim, quant
-from paddle_tpu_torch.core import Trainer, supervised_loss
+from paddle_tpu_torch import data, optim, quant, recordio
+from paddle_tpu_torch.core import Trainer, supervised_loss, train_from_files
+from paddle_tpu_torch.data import write_slot_file
 from paddle_tpu_torch.engine import HostKVTier, ServeEngine
 from paddle_tpu_torch.engine import engine as engine_mod
 from paddle_tpu_torch.engine.tp_worker import param_bytes
@@ -190,6 +197,8 @@ from paddle_tpu_torch.testing import (FLASH_ARGS, PAGED_ARGS, QUANT_ARGS,
                                       pack_prompts, packed_segment_ids,
                                       paged_case, ragged_case,
                                       transformer_tree, write_serving_export)
+from paddle_tpu_torch.utils.debug import memory_stats
+from paddle_tpu_torch.utils.interop import from_dlpack, to_dlpack
 from paddle_tpu_torch.utils.log import add_event_tap, remove_event_tap
 from paddle_tpu_torch.utils.tree import flatten_with_keys
 
@@ -2623,6 +2632,275 @@ def phase_train(cfg: dict, tree: dict, device: torch.device,
     if cuda:
         emit({"phase": "train_profile", **step_profile(trainer, fixed, med),
               "device": card["kind"], "nvidia_smi": card["smi"]})
+    return out
+
+
+# -- the file-fed training path (AsyncExecutor.RunFromFile) -----------------
+
+SLOT_CONFIG = "tokens:int64:sparse"
+# a program that needs zlib's header and library, as recordio.cc does
+ZLIB_PROBE = ('#include <zlib.h>\n'
+              'int main() { return zlibVersion()[0] == 0; }\n')
+
+
+def native_toolchain(root: Path) -> dict:
+    """Can g++ build the port's native libraries here: its version,
+    zlib's header (`echo '#include <zlib.h>' | g++ -E -`) and a `-lz`
+    link, each with g++'s message when it fails."""
+    out = {}
+    try:
+        ver = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60)
+        out["gxx"] = ver.stdout.splitlines()[0] if ver.stdout else None
+    except OSError as e:
+        out["gxx"], out["gxx_error"] = None, str(e)
+        return out
+    head = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                          input="#include <zlib.h>\n", capture_output=True,
+                          text=True, timeout=60)
+    out["zlib_header"] = head.returncode == 0
+    src = root / "zlib_probe.cc"
+    src.write_text(ZLIB_PROBE)
+    link = subprocess.run(["g++", str(src), "-lz", "-o",
+                           str(root / "zlib_probe")], capture_output=True,
+                          text=True, timeout=120)
+    out["zlib_link"] = link.returncode == 0
+    for name, res in (("zlib_header", head), ("zlib_link", link)):
+        if res.returncode != 0:
+            out[name + "_error"] = res.stderr[-1000:]
+    return out
+
+
+def slot_rows(rng: np.random.Generator, n: int, seq: int, vocab: int,
+              window: int) -> np.ndarray:
+    """`n` distinct rows of T + 1 = `seq` + 1 ids of lm_stream's learnable
+    stream (next token = token + 3 mod vocab), int64, their first tokens
+    drawn without replacement from [0, window): every row covers nearly
+    the same tokens, so a few steps over new rows learn them, as the
+    train phase's steps over its one batch do."""
+    start = rng.choice(min(window, vocab), n, replace=False)[:, None]
+    return (start + np.arange(seq + 1)[None, :] * 3) % vocab
+
+
+def _sorted_rows(rows: np.ndarray) -> np.ndarray:
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def files_recordio(root: Path, fc: dict, seed: int) -> dict:
+    """RecordIO on this host: `fc["records"]` records of 1-2048 random
+    bytes written and read back natively (the Python path where the
+    library did not build), compressed and not; `count` agrees; a flipped
+    payload byte raises the CRC error; `prefetch_reader` over both files
+    yields the same records."""
+    native = recordio.native_available()
+    if not native:
+        print(f"recordio native library unavailable: "
+              f"{recordio.native_error()}", flush=True)
+    rng = np.random.default_rng(seed)
+    recs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in rng.integers(1, 2049, fc["records"])]
+    out = {"recordio_native": native, "records": len(recs),
+           "bytes": sum(map(len, recs))}
+    paths = []
+    for compress in (False, True):
+        path = str(root / f"records_{int(compress)}.rio")
+        t0 = time.perf_counter()
+        with recordio.Writer(path, compress=compress,
+                             force_python=not native) as w:
+            for r in recs:
+                w.write(r)
+        t1 = time.perf_counter()
+        got = list(recordio.Scanner(path, force_python=not native))
+        t2 = time.perf_counter()
+        check(got == recs, f"recordio (compress={compress}): records read "
+                           f"back differ")
+        check(recordio.count(path) == len(recs),
+              f"recordio count {recordio.count(path)} != {len(recs)}")
+        key = "zlib" if compress else "raw"
+        out[f"{key}_file_bytes"] = os.path.getsize(path)
+        out[f"{key}_write_ms"] = (t1 - t0) * 1e3
+        out[f"{key}_read_ms"] = (t2 - t1) * 1e3
+        paths.append(path)
+    got = list(recordio.prefetch_reader(paths, n_threads=2)())
+    check(sorted(got) == sorted(recs * 2),
+          "recordio prefetch_reader: records differ")
+    bad = root / "flipped.rio"
+    raw = bytearray(Path(paths[0]).read_bytes())
+    raw[30] ^= 0xFF                     # a payload byte of the first chunk
+    bad.write_bytes(bytes(raw))
+    try:
+        list(recordio.Scanner(str(bad), force_python=not native))
+        crc = None
+    except IOError as e:
+        crc = str(e)
+    check(crc is not None and "crc" in crc,
+          f"recordio: a flipped payload byte read without the CRC error "
+          f"({crc})")
+    out["flipped_byte_error"] = crc
+    return out
+
+
+def phase_files(cfg: dict, tree: dict, device: torch.device, card: dict,
+                train_ms: float) -> dict:
+    """Training straight from slot files (`train_from_files`, the JAX
+    package's AsyncExecutor.RunFromFile path): `fc["files"]` slot files
+    of `fc["rows"]` rows, each row one sparse slot `tokens` of T + 1 ids
+    of the learnable stream (next token = token + 3 mod V, `slot_rows`),
+    written by `write_slot_file`; the native DataFeed (`native=True`, 2
+    threads) parses them, `to_padded` pads them, `device_prefetch` (2 in
+    flight) puts them on the card, and a bf16 CausalLM at the train
+    phase's width and B trains on them with Adam: inputs [:, :T], labels
+    [:, 1:].
+    Checks: every batch that reached the card equals rows that were
+    written (sorted rows compared); finite losses that fall; one launch
+    of each flash kernel per layer per step and no other launch; then
+    RecordIO, DLPack and memory_stats on the card. Prints the step times
+    beside the train phase's median, the host's parse + pad ms a batch,
+    the card's busy share of a step, the peak memory and whether both
+    native libraries built."""
+    fc = cfg["files"]
+    cuda = device.type == "cuda"
+    tag = {"device": card["kind"], "nvidia_smi": card["smi"]}
+    t_phase = time.perf_counter()
+    root = EXPORT_DIR.parent / "chip_smoke_files"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    seq, vocab, batch = cfg["train_seq"], cfg["vocab"], cfg["train_batch"]
+    try:
+        # both native libraries build with g++ at first use: together
+        builders = [threading.Thread(target=lib.get) for lib in
+                    (data.datafeed._lazy, recordio.recordio._lazy)]
+        t_build = time.perf_counter()
+        for th in builders:
+            th.start()
+        tools = native_toolchain(root)
+        for th in builders:
+            th.join()
+        tools["native_build_s"] = time.perf_counter() - t_build
+        tools["native_errors"] = {
+            "datafeed": data.datafeed._lazy.error,
+            "recordio": recordio.recordio._lazy.error}
+        emit({"phase": "files", "part": "toolchain", **tools})
+        rows = slot_rows(np.random.default_rng(SEED + 21),
+                         fc["files"] * fc["rows"], seq, vocab, fc["window"])
+        files = []
+        for i, part in enumerate(np.split(rows, fc["files"])):
+            files.append(str(root / f"part-{i}.txt"))
+            write_slot_file(files[-1], [[r.tolist()] for r in part],
+                            SLOT_CONFIG)
+        written = _sorted_rows(rows)
+
+        def batch_fn(b):
+            padded, mask = b["tokens"]
+            check(bool(mask.all()), "files: a row shorter than T + 1")
+            return padded[:, :seq], padded[:, 1:]
+
+        # the host's parse + pad a batch, native and Python, off the step
+        parse_ms = {}
+        for native in (True, False):
+            t0, n = time.perf_counter(), 0
+            for b in data.MultiSlotDataFeed(files, SLOT_CONFIG,
+                                            batch_size=batch, nthreads=2,
+                                            native=native):
+                batch_fn({"tokens": data.to_padded(*b["tokens"], seq + 1)})
+                n += 1
+            parse_ms["native" if native else "python"] = \
+                (time.perf_counter() - t0) * 1e3 / n
+        libs = {"datafeed": str(data.datafeed._lazy.path),
+                "recordio": str(recordio.recordio._lazy.path)
+                if recordio.native_available() else None}
+
+        model = _lm(cfg, tree, cfg["dtype"], device)
+        trainer = Trainer(model, Adam(model.parameters(), cfg["train_lr"]),
+                          lm_loss, seed=SEED)
+        trainer.train_step(_lm_batches(cfg, 1, batch, device,
+                                       SEED + 22)[0])  # warm-up, uncounted
+        seen: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+        def recording_loss(module, b, generator, training):
+            seen.append(b)
+            return lm_loss(module, b, generator, training)
+        trainer.loss_fn = recording_loss
+        losses, stamps = [], []
+
+        def callback(step, fetches):
+            losses.append(float(fetches["loss"]))   # syncs the step
+            stamps.append(time.perf_counter())
+        start_bytes = _phase_mem(cuda)
+        _reset_launches()                            # the path's counts
+        t0 = time.perf_counter()
+        train_from_files(trainer, files, SLOT_CONFIG, batch_fn,
+                         batch_size=batch, nthreads=2, prefetch=2,
+                         max_sparse_len=seq + 1, drop_last=True,
+                         callback=callback, native=True)
+        wall = time.perf_counter() - t0
+        steps = len(losses)
+        layers = cfg["lm"]["num_layers"]
+        launches = _expect_launches(FLASH_KERNELS, steps, layers, cuda)
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        check(steps == fc["files"] * fc["rows"] // batch,
+              f"files: {steps} steps from {fc['files']} x {fc['rows']} "
+              f"rows at B {batch}")
+        on = next(model.parameters()).device
+        check(all(x.device == on and y.device == on for x, y in seen),
+              f"files: a batch not on the model's device {on}")
+        got = np.concatenate([torch.cat([x, y[:, -1:]], 1).cpu().numpy()
+                              for x, y in seen])
+        check(all(torch.equal(x[:, 1:], y[:, :-1]) for x, y in seen),
+              "files: labels are not the inputs shifted by one")
+        check(got.shape == written.shape
+              and np.array_equal(_sorted_rows(got), written),
+              "files: the batches on the card differ from the written rows")
+        check(all(np.isfinite(losses)), f"files: non-finite losses {losses}")
+        third = max(1, steps // 3)
+        check(np.mean(losses[-third:]) < np.mean(losses[:third]),
+              f"files: loss did not fall: {losses}")
+        step_ms = list(np.diff([t0] + stamps) * 1e3)
+        med = float(np.median(step_ms))
+        out = {"files": fc["files"], "rows": fc["rows"], "steps": steps,
+               "batch": batch, "seq": seq,
+               "dtype": str(cfg["dtype"]).replace("torch.", ""),
+               "losses": losses, "step_ms": step_ms,
+               "step_ms_median": med, "train_step_ms_median": train_ms,
+               "step_vs_train": med / train_ms, "wall_s": wall,
+               "tokens_per_s": batch * seq / med * 1e3,
+               "parse_pad_ms_per_batch": parse_ms,
+               "parse_vs_step": parse_ms["native"] / med,
+               "peak_bytes": peak, "allocated_at_start_bytes": start_bytes,
+               "kernel_launches": launches, "layers": layers,
+               "datafeed_native": True, "native_libraries": libs, **tag}
+        emit({"phase": "files", "part": "train", **out})
+        if cuda:
+            prof = step_profile(trainer, seen[-1], med)
+            out["device_busy_ms"] = prof["device_busy_ms"]
+            out["idle_share"] = prof["idle_share"]
+            emit({"phase": "files", "part": "profile", **prof, **tag})
+
+        rio = files_recordio(root, fc, SEED + 23)
+        out.update(rio)
+        t = torch.arange(1 << 20, dtype=torch.float32, device=device)
+        u = from_dlpack(to_dlpack(t))
+        v = from_dlpack(t)
+        check(u.data_ptr() == t.data_ptr() == v.data_ptr()
+              and u.device == t.device == v.device and torch.equal(u, t),
+              "files: DLPack round trip copied or moved the tensor")
+        if cuda:
+            dev = f"cuda:{torch.cuda.current_device()}"
+            stats = memory_stats(dev)
+            allocated = torch.cuda.memory_allocated()
+            check(stats["bytes_in_use"] == allocated,
+                  f"memory_stats({dev!r}) {stats['bytes_in_use']} != "
+                  f"memory_allocated() {allocated}")
+        else:
+            stats = memory_stats("cpu")
+        out["memory_stats"] = stats
+        emit({"phase": "files", "part": "runtime", **rio,
+              "dlpack_same_ptr": True, "memory_stats": stats,
+              "datafeed_native": True, **tag})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "files", "part": "seconds", "seconds": out["seconds"]})
     return out
 
 
@@ -5296,6 +5574,10 @@ def full_config() -> dict:
         # examples/train_causal_lm.py; train_vs_plain: one f32 step
         train_steps=10, train_batch=4, train_seq=2048, train_lr=3e-3,
         tvp_batch=4,
+        # files: the train phase's model and B x T from two slot files of
+        # 24 rows (12 steps), first tokens from [0, 64); RecordIO round
+        # trips of 4096 records
+        files=dict(files=2, rows=24, window=64, records=4096),
         # generate: B 8 at two prompt lengths, 64 new tokens each;
         # prefill_paged over 8 prompts of 300-512 right-padded
         gen=dict(batch=8, lens=(300, 512), new=64,
@@ -5435,6 +5717,7 @@ def tiny_config() -> dict:
         flash_check=(2, 40, 8, 8), flash_time=(1, 48, 8, 8), flash_iters=2,
         train_steps=10, train_batch=2, train_seq=32, train_lr=3e-3,
         tvp_batch=2,
+        files=dict(files=2, rows=16, window=32, records=256),
         gen=dict(batch=2, lens=(12, 20), new=6, paged_lens=[12, 16, 20]),
         resume=dict(steps=4, split=2, batch=2),
         resilient=dict(steps=6, batch=2, save_every=2, budget=2,
@@ -5560,6 +5843,7 @@ def main(argv=None) -> int:
         train = phase_train(cfg, tree, device, card)
         paths.update(dict.fromkeys(FLASH_KERNELS, train))
         phase_train_vs_plain(cfg, tree, device)
+        files = phase_files(cfg, tree, device, card, train["step_ms_median"])
         generate = phase_generate(cfg, tree, device, card)
         phase_resume(cfg, tree, device, card)
         phase_resilient(cfg, tree, device, card)
@@ -5610,6 +5894,7 @@ def main(argv=None) -> int:
                     v: [r[name] for r in ranks]
                     for v, ranks in par["kernel_launches"].items()}
                 rows[-1]["launches_bert"] = bert["kernel_launches"][name]
+                rows[-1]["launches_files"] = files["kernel_launches"][name]
                 rows[-1]["launches_seq2seq"] = \
                     seq2seq["kernel_launches"][name]
             if name == "paged_attention":

@@ -210,6 +210,67 @@ def supervised_loss(criterion: Callable[[torch.Tensor, torch.Tensor],
     return loss_fn
 
 
+def train_from_files(trainer: Trainer, files: Sequence[str], slots,
+                     batch_fn: Optional[Callable] = None, *,
+                     batch_size: int = 128, nthreads: int = 2,
+                     epochs: int = 1, prefetch: int = 2,
+                     max_sparse_len: Optional[int] = None,
+                     drop_last: bool = True,
+                     callback: Optional[Callable[[int, Dict], None]] = None,
+                     native: Optional[bool] = None) -> TrainState:
+    """Train straight from slot-format text files (executor.py:267).
+
+    The AsyncExecutor.RunFromFile capability (Fluid's
+    framework/async_executor.cc: training threads consume a DataFeed
+    without returning to Python between examples): the native
+    `MultiSlotDataFeed` parses the files on C++ threads, sparse slots
+    become the padded + mask form of static shape (`to_padded`, at
+    `max_sparse_len`), and `data.feeder.device_prefetch` keeps
+    `prefetch` batches in flight onto the trainer's device (pinned,
+    non-blocking copies on the card), so parsing and copies overlap
+    the step.
+
+    `batch_fn(batch_dict) -> model batch` adapts a columnar batch (dense
+    slots: arrays; sparse slots: (padded, mask)) on the host to the
+    trainer's batch convention; by default the dict passes through.
+    With `drop_last` the ragged tail batch is dropped, so every step
+    has one shape. `native` goes to the feed (None: the C++ parser when
+    it builds; True: raise when it does not). The trainer holds its
+    state, as in `Trainer.fit`: `callback(step, fetches)` after each
+    step, and the return is `trainer.state()`.
+    """
+    from paddle_tpu_torch.data.datafeed import (MultiSlotDataFeed,
+                                                _batch_rows, to_padded)
+    from paddle_tpu_torch.data.feeder import device_prefetch
+
+    feed = MultiSlotDataFeed(files, slots, batch_size=batch_size,
+                             nthreads=nthreads, native=native)
+    sparse = [s.name for s in feed.slots if not s.dense]
+    if sparse and max_sparse_len is None:
+        raise ValueError(
+            f"sparse slots {sparse} need max_sparse_len for the "
+            "static-shape padded form")
+    device = next(trainer.module.parameters()).device
+
+    def batches():
+        for b in feed:
+            if drop_last and _batch_rows(b) != batch_size:
+                continue
+            out = {}
+            for name, v in b.items():
+                out[name] = (to_padded(v[0], v[1], max_sparse_len)
+                             if isinstance(v, tuple) else v)
+            yield batch_fn(out) if batch_fn is not None else out
+
+    for _ in range(epochs):
+        for batch in device_prefetch(batches(), size=prefetch,
+                                     device=device):
+            fetches = trainer.train_step(batch)
+            if callback is not None:
+                callback(trainer.step, fetches)
+    return trainer.state()
+
+
 class Executor:
     """Run programs with feed and fetch (executor.py:330, ≈ fluid.Executor):
     `run(program, feed, fetch_list)`, where a program is a callable over

@@ -125,6 +125,10 @@ class StepRow:
     draft: List[int] = field(default_factory=list)
 
 
+# JAX's back-compat alias (scheduler.py:136): a prefill chunk is a
+# StepRow with decode=False
+PrefillChunk = StepRow
+
 Plan = List[StepRow]
 
 

@@ -4,7 +4,8 @@ JAX (paddle_tpu/io counterpart)."""
 from paddle_tpu_torch.io.checkpoint import (
     AsyncCheckpointer, CheckpointIntegrityError, CheckpointManager,
     checkpoint_step, latest_checkpoint, list_checkpoints, load_checkpoint,
-    read_metadata, save_checkpoint, verify_checkpoint)
+    load_persistables, read_metadata, save_checkpoint, save_persistables,
+    verify_checkpoint)
 from paddle_tpu_torch.io.inference import (InferencePredictor,
                                            load_inference_model,
                                            save_inference_model)
@@ -12,5 +13,6 @@ from paddle_tpu_torch.io.inference import (InferencePredictor,
 __all__ = ["AsyncCheckpointer", "CheckpointIntegrityError",
            "CheckpointManager", "InferencePredictor", "checkpoint_step",
            "latest_checkpoint", "list_checkpoints", "load_checkpoint",
-           "load_inference_model", "read_metadata", "save_checkpoint",
-           "save_inference_model", "verify_checkpoint"]
+           "load_inference_model", "load_persistables", "read_metadata",
+           "save_checkpoint", "save_inference_model", "save_persistables",
+           "verify_checkpoint"]

@@ -484,6 +484,12 @@ def read_metadata(path: str) -> Dict:
         return json.load(f).get("metadata", {}) or {}
 
 
+# Fluid-compatible aliases (io.py save_persistables / load_persistables),
+# as JAX's checkpoint.py:579-581 keeps them
+save_persistables = save_checkpoint
+load_persistables = load_checkpoint
+
+
 def list_checkpoints(directory: str) -> List[Tuple[int, str]]:
     """Committed checkpoints as [(step, path)], NEWEST first: only exact
     `ckpt-{step}` names that hold a manifest."""

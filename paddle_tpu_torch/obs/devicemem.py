@@ -30,11 +30,19 @@ from paddle_tpu_torch.obs.metrics import MetricsRegistry, default_registry
 
 def _live_bytes(dev: torch.device) -> int:
     """Bytes of the distinct untyped storages of live tensors on `dev`."""
+    return sum(_live_storages(dev).values())
+
+
+def _live_storages(dev: torch.device) -> Dict[int, int]:
+    """The distinct untyped storages of live tensors on `dev`: data
+    pointer -> bytes. Traced tensors (a trace's FakeTensors) hold none."""
+    from torch._subclasses.fake_tensor import FakeTensor
     seen: Dict[int, int] = {}
     for obj in gc.get_objects():
         # type(), not isinstance(): isinstance reads __class__, which
         # some lazily deprecated objects answer with a warning
-        if not issubclass(type(obj), torch.Tensor):
+        if (not issubclass(type(obj), torch.Tensor)
+                or issubclass(type(obj), FakeTensor)):
             continue
         try:
             if obj.device != dev:
@@ -44,7 +52,7 @@ def _live_bytes(dev: torch.device) -> int:
         except (RuntimeError, NotImplementedError, ReferenceError):
             continue     # meta, sparse, freed or fake (traced) tensors
         seen[ptr] = storage.nbytes()
-    return sum(seen.values())
+    return seen
 
 
 class DeviceMemoryMonitor:
