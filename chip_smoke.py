@@ -24,6 +24,14 @@ user calls:
   the flash kernels again, from file-fed batches that must equal the
   written rows; then RecordIO files written and read back natively, a
   DLPack round trip and `memory_stats` on the card;
+- `profile`: 3 more `train` steps under the port's profiler
+  (`start_profiler(trace_dir)`): `Trainer.train_step` in the host table
+  once a step, `op_table(by="category")` listing the flash kernels'
+  operators at one launch a layer a step, an `annotate` region on the
+  device timeline, the table's device ms beside `train`'s step; a short
+  engine wave whose merged trace carries the host spans;
+- `selfcheck`: `flash_selfcheck()` at JAX's defaults (B 2, H 4, T 1024,
+  D 64, bf16, causal) with its launch counts;
 
 - `engine`: a `ServeEngine` (bf16) serving two waves that share a
   prefix — the fp ragged kernel, inside the step's CUDA graph, which
@@ -97,6 +105,10 @@ user calls:
   kernel 4 through its operator, once a layer; a CausalLM export at the
   LM configuration with its `serve` block, served by
   `ServeEngine.from_saved_model` with an in-memory engine's streams;
+  between the two, `cabi` serves the BERT export through serving/'s C
+  ABI (`CPredictor` on the card against `InferencePredictor`, kernel 4
+  once a layer a call), the C++ demo and the C++ training program, and
+  4 clones at once (JAX's bar: 0.5x the serial calls a second);
 - `book`: LeNet on the seeded synthetic MNIST through the `data`
   readers and `device_prefetch`, 3 epochs, checkpoint restore, export
   and `freeze_int8`, test accuracy > 0.7 in float and int8;
@@ -133,6 +145,7 @@ import argparse
 import contextlib
 import copy
 import gc
+import gzip
 import itertools
 import json
 import logging
@@ -151,16 +164,20 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from paddle_tpu_torch import data, optim, quant, recordio
+from paddle_tpu_torch import (data, optim, profiler, quant, recordio,
+                              serving)
 from paddle_tpu_torch.core import Trainer, supervised_loss, train_from_files
 from paddle_tpu_torch.data import write_slot_file
 from paddle_tpu_torch.engine import HostKVTier, ServeEngine
 from paddle_tpu_torch.engine import engine as engine_mod
 from paddle_tpu_torch.engine.tp_worker import param_bytes
 from paddle_tpu_torch.io import (CheckpointManager, InferencePredictor,
-                                 save_inference_model, verify_checkpoint)
+                                 load_checkpoint, save_inference_model,
+                                 verify_checkpoint)
 from paddle_tpu_torch.kernels import attention, build, flash
 from paddle_tpu_torch.kernels import paged_attention as paged
+from paddle_tpu_torch.kernels.selfcheck import (EXPECTED_LAUNCHES,
+                                                flash_selfcheck)
 from paddle_tpu_torch.metrics import accuracy
 from paddle_tpu_torch.models import (BertEncoder, CausalLM, LeNet, ResNet,
                                      TextClassifier, Transformer,
@@ -168,7 +185,8 @@ from paddle_tpu_torch.models import (BertEncoder, CausalLM, LeNet, ResNet,
 from paddle_tpu_torch.nn.layers import Conv2D, Linear
 from paddle_tpu_torch.obs import (DeviceMemoryMonitor, FlightRecorder,
                                   GoodputLedger, MetricsServer,
-                                  causal_lm_step_flops, param_count)
+                                  causal_lm_step_flops, merged_chrome_trace,
+                                  param_count)
 from paddle_tpu_torch.obs.goodput import PEAK_FLOPS as CARD_PEAK_FLOPS
 from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.ops import (beam_search, linear_cross_entropy,
@@ -2591,7 +2609,8 @@ def phase_train(cfg: dict, tree: dict, device: torch.device,
     token + 3 mod V), which trains, as that example does, on one batch
     every step: one warm-up step on another batch, then the counted
     steps. Checks: finite losses that fall; one launch of each flash
-    kernel per layer per step and no other launch."""
+    kernel per layer per step and no other launch. Returns the phase's
+    numbers, the trainer and its batch (the `profile` phase's)."""
     cuda = device.type == "cuda"
     steps, batch = cfg["train_steps"], cfg["train_batch"]
     model = _lm(cfg, tree, cfg["dtype"], device)
@@ -2632,8 +2651,363 @@ def phase_train(cfg: dict, tree: dict, device: torch.device,
     if cuda:
         emit({"phase": "train_profile", **step_profile(trainer, fixed, med),
               "device": card["kind"], "nvidia_smi": card["smi"]})
+    return out, trainer, fixed
+
+
+
+# -- the profiler on the train path -------------------------------------------
+
+PROFILE_REGION = "chip_smoke.profile_region"
+# the operator a flash kernel runs under in a trace (kernels/flash.py)
+FLASH_OPS = {k: f"paddle_tpu_torch::{k}" for k in FLASH_KERNELS}
+
+
+def _trace_events(trace_dir: Path) -> list:
+    files = sorted(trace_dir.glob("*.trace.json.gz"))
+    check(len(files) == 1, f"profile: {len(files)} trace files in "
+                           f"{trace_dir} (want 1)")
+    with gzip.open(files[0], "rt") as f:
+        return json.load(f)["traceEvents"]
+
+
+def phase_profile(cfg: dict, tree: dict, trainer, batch, train_ms: float,
+                  device: torch.device, card: dict) -> dict:
+    """The port's profiler (paddle_tpu_torch.profiler) on the train
+    path: `start_profiler(trace_dir)` around `cfg["profile_steps"]` more
+    steps of the `train` phase's trainer on its batch, the middle one
+    inside `annotate(PROFILE_REGION)`. Checks: the host table holds
+    `Trainer.train_step` once a step and the region once; the flash
+    kernels launched once a layer a step and nothing else launched;
+    `op_table(trace_dir, by="category")` lists each flash kernel's
+    operator at one launch a layer a step; the region shows on the
+    device timeline (a `gpu_user_annotation`; on the CPU the host's
+    `user_annotation`). Prints the table's top rows and its device ms a
+    step beside the `train` phase's median step. Then a short engine
+    wave (one prompt, full width) under the profiler, inside an
+    annotated region: `merged_chrome_trace` carries the region's host
+    span under "engine host" beside the request rows."""
+    cuda = device.type == "cuda"
+    steps, layers = cfg["profile_steps"], cfg["lm"]["num_layers"]
+    trace_dir = EXPORT_DIR.parent / "chip_smoke_profile"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t_phase = time.perf_counter()
+    try:
+        _reset_launches()
+        profiler.start_profiler(str(trace_dir))
+        losses = []
+        for i in range(steps):
+            region = (profiler.annotate(PROFILE_REGION) if i == steps // 2
+                      else contextlib.nullcontext())
+            with region:
+                losses.append(float(trainer.train_step(batch)["loss"]))
+        rows = profiler.stop_profiler(print_table=False)
+        launches = _expect_launches(FLASH_KERNELS, steps, layers, cuda)
+        calls = {r["name"]: r["calls"] for r in rows}
+        check(calls == {"Trainer.train_step": steps, PROFILE_REGION: 1},
+              f"profile: host table {calls}")
+        check(all(np.isfinite(losses)), f"profile: losses {losses}")
+        table = profiler.op_table(str(trace_dir), steps=steps,
+                                  by="category")
+        by_name = {r.name: r for r in table}
+        region_cat = "gpu_user_annotation" if cuda else "user_annotation"
+        regions = [e for e in _trace_events(trace_dir)
+                   if e.get("cat") == region_cat
+                   and e.get("name") == PROFILE_REGION]
+        check(len(regions) == 1, f"profile: {len(regions)} "
+                                 f"{region_cat} events named "
+                                 f"{PROFILE_REGION} (want 1)")
+        if cuda:
+            counts = {op: by_name[op].count if op in by_name else 0
+                      for op in FLASH_OPS.values()}
+            check(counts == dict.fromkeys(FLASH_OPS.values(), layers),
+                  f"profile: flash operators a step {counts} (want "
+                  f"{layers} each)")
+        else:
+            check(table == [], f"profile: device rows on the CPU: {table}")
+        device_ms = sum(r.total_ms for r in table)
+        top = [{"name": r.name[:80], "ms_per_step": r.total_ms,
+                "calls_per_step": r.count, "tflops": r.tflops}
+               for r in table[:cfg["profile_top"]]]
+        print(profiler.format_table(table[:cfg["profile_top"]]),
+              file=sys.stderr, flush=True)
+        engine = _profile_engine(cfg, tree, device)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    out = {"steps": steps, "host_table": rows,
+           "kernel_launches": launches,
+           "flash_ops_per_step": {k: by_name[op].count
+                                  for k, op in FLASH_OPS.items()
+                                  if op in by_name},
+           "top_ops": top, "device_ms_per_step": device_ms if cuda
+           else None, "train_step_ms_median": train_ms,
+           "device_busy_share": device_ms / train_ms if cuda else None,
+           "annotation": region_cat, "engine": engine,
+           "seconds": time.perf_counter() - t_phase,
+           "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "profile", **out})
     return out
 
+
+def _profile_engine(cfg: dict, tree: dict, device: torch.device) -> dict:
+    """One short wave of a full-width bf16 engine under the profiler;
+    its merged trace's host spans and request rows."""
+    model = _lm(cfg, tree, cfg["dtype"], device)
+    engine = ServeEngine(model, **_engine_kw(cfg, device))
+    prompt = np.random.default_rng(SEED + 91).integers(
+        1, cfg["vocab"], cfg["profile_prompt"]).tolist()
+    profiler.start_profiler()
+    try:
+        with profiler.annotate("engine.generate"):
+            engine.generate([prompt], max_new_tokens=cfg["profile_new"])
+        trace = merged_chrome_trace(engine.tracer)
+    finally:
+        profiler.stop_profiler(print_table=False)
+    evs = trace["traceEvents"]
+    procs = {e["pid"]: e["args"]["name"] for e in evs
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    host = [e["name"] for e in evs if e["ph"] == "X"
+            and procs.get(e["pid"]) == "engine host"]
+    req = [e["name"] for e in evs if e["ph"] == "X"
+           and procs.get(e["pid"]) == "serve requests"]
+    check(host == ["engine.generate"], f"profile: engine host spans {host}")
+    check({"queued", "prefill", "decode"} <= set(req),
+          f"profile: request spans {req}")
+    del engine, model
+    return {"processes": sorted(procs.values()), "host_spans": host,
+            "request_spans": sorted(set(req))}
+
+
+def phase_selfcheck(cfg: dict, device: torch.device, card: dict) -> dict:
+    """`flash_selfcheck()` (kernels/selfcheck.py) at JAX's defaults (B 2,
+    H 4, T 1024, D 64, bf16, causal): flash against the plain reference
+    forward and backward, segment ids and dropout, asserting the gate
+    took the flash path and, on the card, that kernels 4, 5 and 6
+    launched as its source expects (`EXPECTED_LAUNCHES`), and nothing
+    else. On the CPU rehearsal the gate is forced open (as the tests
+    force it) at a small float32 shape."""
+    cuda = device.type == "cuda"
+    kw = dict(cfg["selfcheck"])
+    gate = contextlib.nullcontext()
+    if not cuda:
+        gate = _forced_flash_gate()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with gate:
+        res = flash_selfcheck(device=device, **kw)
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    want = dict.fromkeys(launches, 0)
+    if cuda:
+        want.update(EXPECTED_LAUNCHES)
+    check(launches == want, f"selfcheck launches {launches} != {want}")
+    out = {**res, "shape": {k: (str(v).replace("torch.", "")
+                                if k == "dtype" else v)
+                            for k, v in kw.items()},
+           "expected_launches": EXPECTED_LAUNCHES, "kernel_launches": launches,
+           "seconds": seconds, "device": card["kind"],
+           "nvidia_smi": card["smi"]}
+    emit({"phase": "selfcheck", **out})
+    return out
+
+
+@contextlib.contextmanager
+def _forced_flash_gate():
+    """attention.would_use_flash open for CPU tensors (the rehearsal)."""
+    saved = attention.would_use_flash
+    attention.would_use_flash = lambda *a, **k: True
+    try:
+        yield
+    finally:
+        attention.would_use_flash = saved
+
+
+# -- the C-ABI serving shim on the export phase's BERT ------------------------
+
+def _ramp_feed(signature: dict) -> List[np.ndarray]:
+    """demo.cc's deterministic inputs for a signature: floats k % 100 /
+    100, integers k % 7 (as int32)."""
+    feed = []
+    for item in signature["inputs"]:
+        n = int(np.prod(item["shape"]))
+        k = np.arange(n)
+        if item["dtype"] in ("int32", "int64"):
+            feed.append((k % 7).astype(np.int32).reshape(item["shape"]))
+        else:
+            feed.append((k % 100 / 100.0).astype(np.float32)
+                        .reshape(item["shape"]))
+    return feed
+
+
+def phase_cabi(cfg: dict, model_dir: Path, feed: Dict[str, np.ndarray],
+               layers: int, device: torch.device, card: dict) -> dict:
+    """serving/'s C ABI on the `export` phase's BERT-base export
+    (`model_dir`): `CPredictor` (no device argument: the card) against
+    `InferencePredictor` on the same feed within 1e-5 of the largest
+    output, one call launching kernel 4 once a layer and nothing else;
+    the C++ demo's output sum against the Python predictor's on the
+    demo's ramp input; the C++ train demo on the card (loss falls, its
+    checkpoint loads); 4 clones serving at once, each answer equal to
+    the serial one, and their calls a second against the serial calls a
+    second (JAX's bar: at least 0.5x). Prints a C-ABI call's ms beside
+    the Python predictor's."""
+    cuda = device.type == "cuda"
+    cc = cfg["cabi"]
+    dev = None if cuda else "cpu"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    build = {"library": serving.build_library(),
+             "demo": serving.build_demo(),
+             "train_demo": serving.build_train_demo()}
+    build_s = time.perf_counter() - t0
+    pred = InferencePredictor(str(model_dir), device=device)
+    inputs = [feed[n] for n in pred.signature["input_names"]]
+    want = pred.run(inputs)[0]
+    base = serving.CPredictor(str(model_dir), device=dev)
+    try:
+        base.run(inputs)                            # warm-up, uncounted
+        _reset_launches()
+        got = base.run(inputs)[0]
+        launches = _launches()
+        want_launches = dict.fromkeys(launches, 0)
+        if cuda:
+            want_launches["flash_fwd"] = layers
+        check(launches == want_launches,
+              f"cabi: one call's launches {launches} != {want_launches}")
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        check(got.shape == want.shape and err <= 1e-5 * scale,
+              f"cabi: C ABI vs InferencePredictor {err} > 1e-5 x {scale}")
+        call_ms = _host_call_ms(lambda: base.run(inputs), cc["calls"])
+        py_ms = _host_call_ms(lambda: pred.run(inputs), cc["calls"])
+        clones = _clone_throughput(base, inputs, got, cc, cuda)
+    finally:
+        base.close()
+    # the same 4-thread ratio on the Python predictor, with its launch
+    # lock and without it (what the lock is for)
+    threads = {mode: _thread_ratio(pred, inputs, cc, locked)
+               for mode, locked in (("locked", True), ("unlocked", False))}
+    ramp = _ramp_feed(pred.signature)
+    # summed in float64, as the demo sums (float32 pairwise sums of ~1e6
+    # outputs near 0 differ from it by ~1e-4)
+    py_sum = float(pred.run(ramp)[0].astype(np.float64).sum())
+    del pred
+    demo = serving.run_demo(str(model_dir), dev, timeout=cc["timeout_s"])
+    check(demo.returncode == 0, f"cabi: demo rc {demo.returncode}: "
+                                f"{demo.stdout[-800:]} {demo.stderr[-2000:]}")
+    line = [ln for ln in demo.stdout.splitlines()
+            if ln.startswith("output 0")]
+    check(len(line) == 1, f"cabi: demo printed {demo.stdout[-800:]}")
+    demo_sum = float(line[0].split("sum=")[1])
+    check(abs(demo_sum - py_sum) <= 1e-4 * max(1.0, abs(py_sum)),
+          f"cabi: demo sum {demo_sum} != Python predictor's {py_sum}")
+    ckpt = model_dir.parent / "train_demo_ckpt"
+    t0 = time.perf_counter()
+    td = serving.run_train_demo(str(ckpt), dev, timeout=cc["timeout_s"])
+    train_demo_s = time.perf_counter() - t0
+    check(td.returncode == 0 and "TRAIN DEMO OK" in td.stdout,
+          f"cabi: train demo rc {td.returncode}: {td.stdout[-800:]} "
+          f"{td.stderr[-2000:]}")
+    tree = load_checkpoint(str(ckpt))
+    check({"params", "opt"} <= set(tree), f"cabi: checkpoint {set(tree)}")
+    out = {"model": "BERT-base forward (export phase)", "layers": layers,
+           "feed_shapes": {n: list(x.shape) for n, x in feed.items()},
+           "max_abs_err": err, "max_abs_output": scale,
+           "kernel_launches": launches, "cabi_call_ms": call_ms,
+           "python_call_ms": py_ms, "clones": clones,
+           "python_threads": threads,
+           "demo_line": line[0], "demo_sum": demo_sum,
+           "python_sum": py_sum,
+           "train_demo_losses": [ln for ln in td.stdout.splitlines()
+                                 if ln.startswith(("step", "first"))],
+           "train_demo_s": train_demo_s, "build_s": build_s,
+           "built": {k: os.path.basename(v) for k, v in build.items()},
+           "seconds": time.perf_counter() - t_phase,
+           "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit({"phase": "cabi", **out})
+    return out
+
+
+def _host_call_ms(fn, calls: int) -> float:
+    """Median host ms of `calls` calls of `fn` (each returns host numpy,
+    so each call waits for its work)."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _thread_ratio(pred, inputs, cc: dict, locked: bool) -> dict:
+    """Calls a second of `cc["clones"]` threads sharing the Python
+    predictor `pred` over its serial calls a second; `locked=False` runs
+    them with its launch lock replaced by a no-op."""
+    n, k = cc["clone_calls"], cc["clones"]
+    t0 = time.perf_counter()
+    for _ in range(n * k):
+        pred.run(inputs)
+    serial = n * k / (time.perf_counter() - t0)
+    saved = pred._lock
+    if not locked:
+        pred._lock = contextlib.nullcontext()
+    try:
+        threads = [threading.Thread(
+            target=lambda: [pred.run(inputs) for _ in range(n)])
+            for _ in range(k)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        conc = n * k / (time.perf_counter() - t0)
+    finally:
+        pred._lock = saved
+    return {"serial_calls_per_s": serial, "thread_calls_per_s": conc,
+            "ratio": conc / serial}
+
+
+def _clone_throughput(base, inputs, want: np.ndarray, cc: dict,
+                      cuda: bool) -> dict:
+    """Serial calls a second on `base`, then `cc["clones"]` clones on as
+    many threads: every clone's answer equals `want`, and on the card the
+    ratio of the two rates is at least JAX's bar (0.5)."""
+    n, k = cc["clone_calls"], cc["clones"]
+    t0 = time.perf_counter()
+    for _ in range(n * k):
+        base.run(inputs)
+    serial = n * k / (time.perf_counter() - t0)
+    clones = [base.clone() for _ in range(k)]
+    errors: List[str] = []
+
+    def worker(c):
+        try:
+            for _ in range(n):
+                if not np.array_equal(c.run(inputs)[0], want):
+                    errors.append("a clone's answer differs")
+        except Exception as e:      # a dead worker fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(c,)) for c in clones]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=cc["timeout_s"])
+    conc = n * k / (time.perf_counter() - t0)
+    hung = any(t.is_alive() for t in threads)
+    if not hung:
+        for c in clones:
+            c.close()
+    check(not hung, "cabi: a clone thread hung")
+    check(not errors, f"cabi: clones: {errors[:3]}")
+    ratio = conc / serial
+    # the bar is a rate on the card's clock; the CPU rehearsal runs beside
+    # other processes and only prints it
+    check(ratio >= 0.5 or not cuda,
+          f"cabi: {k} clones at {conc:.1f} calls/s, {ratio:.2f}x the "
+          f"serial {serial:.1f} (bar 0.5x)")
+    return {"clones": k, "calls_each": n, "serial_calls_per_s": serial,
+            "clone_calls_per_s": conc, "ratio": ratio, "bar": 0.5}
 
 # -- the file-fed training path (AsyncExecutor.RunFromFile) -----------------
 
@@ -4959,7 +5333,8 @@ def _export_bert(cfg: dict, device: torch.device, root: Path) -> dict:
             "kernel_launches": launches,
             "plain_versions_called": sorted(plain),
             "max_rel_err": err,
-            "pt2_bytes": os.path.getsize(root / "bert" / "model.pt2")}
+            "pt2_bytes": os.path.getsize(root / "bert" / "model.pt2"),
+            "feed": feed}
 
 
 def _export_lm(cfg: dict, tree: dict, device: torch.device,
@@ -5007,7 +5382,8 @@ def phase_export(cfg: dict, tree: dict, device: torch.device,
     a layer and nothing reaches a plain version; (c) a CausalLM export
     at LM_BASE with `serve_meta`, served by `from_saved_model`, its
     greedy float32 streams equal to an engine over the same weights in
-    memory."""
+    memory. Between (b) and (c) the `cabi` phase serves (b)'s export
+    through the C ABI (phase_cabi)."""
     root = EXPORT_DIR.parent / "chip_smoke_inference"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -5017,7 +5393,10 @@ def phase_export(cfg: dict, tree: dict, device: torch.device,
         out = {"resnet": _export_resnet(cfg["export"], device, root)}
         emit({"phase": "export", "part": "resnet", **out["resnet"], **tag})
         out["bert"] = _export_bert(cfg, device, root)
+        feed = out["bert"].pop("feed")
         emit({"phase": "export", "part": "bert", **out["bert"], **tag})
+        out["cabi"] = phase_cabi(cfg, root / "bert", feed,
+                                 out["bert"]["layers"], device, card)
         out["lm"] = _export_lm(cfg, tree, device, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5578,6 +5957,13 @@ def full_config() -> dict:
         # 24 rows (12 steps), first tokens from [0, 64); RecordIO round
         # trips of 4096 records
         files=dict(files=2, rows=24, window=64, records=4096),
+        # profile: 3 more train steps under the port's profiler, the top
+        # 8 rows of its op table; a 256-token prompt, 8 new tokens
+        profile_steps=3, profile_top=8, profile_prompt=256, profile_new=8,
+        # selfcheck: flash_selfcheck()'s defaults (JAX's)
+        selfcheck=dict(),
+        # cabi: timed calls, 4 clones x 10 calls against 40 serial ones
+        cabi=dict(calls=20, clones=4, clone_calls=10, timeout_s=300),
         # generate: B 8 at two prompt lengths, 64 new tokens each;
         # prefill_paged over 8 prompts of 300-512 right-padded
         gen=dict(batch=8, lens=(300, 512), new=64,
@@ -5718,6 +6104,10 @@ def tiny_config() -> dict:
         train_steps=10, train_batch=2, train_seq=32, train_lr=3e-3,
         tvp_batch=2,
         files=dict(files=2, rows=16, window=32, records=256),
+        profile_steps=3, profile_top=8, profile_prompt=12, profile_new=3,
+        selfcheck=dict(batch=1, heads=2, seq=128, head_dim=32,
+                       dtype=torch.float32, atol=1e-3),
+        cabi=dict(calls=3, clones=4, clone_calls=3, timeout_s=300),
         gen=dict(batch=2, lens=(12, 20), new=6, paged_lens=[12, 16, 20]),
         resume=dict(steps=4, split=2, batch=2),
         resilient=dict(steps=6, batch=2, save_every=2, budget=2,
@@ -5840,8 +6230,12 @@ def main(argv=None) -> int:
         serve_http = phase_serve_http(cfg, tree, device, card)
         tp = phase_engine_tp(cfg, tree, device, card)
         paths["paged_attention"] = phase_split_path(cfg, tree, device, card)
-        train = phase_train(cfg, tree, device, card)
+        train, trainer, batch = phase_train(cfg, tree, device, card)
         paths.update(dict.fromkeys(FLASH_KERNELS, train))
+        prof = phase_profile(cfg, tree, trainer, batch,
+                             train["step_ms_median"], device, card)
+        del trainer, batch
+        selfcheck = phase_selfcheck(cfg, device, card)
         phase_train_vs_plain(cfg, tree, device)
         files = phase_files(cfg, tree, device, card, train["step_ms_median"])
         generate = phase_generate(cfg, tree, device, card)
@@ -5884,6 +6278,8 @@ def main(argv=None) -> int:
             if name == "flash_fwd":
                 rows[-1]["launches_export"] = \
                     export["bert"]["kernel_launches"][name]
+                rows[-1]["launches_cabi"] = \
+                    export["cabi"]["kernel_launches"][name]
                 rows[-1]["launches_generate"] = {
                     dt: r["kernel_launches"][name]
                     for dt, r in generate.items()}
@@ -5895,6 +6291,9 @@ def main(argv=None) -> int:
                     for v, ranks in par["kernel_launches"].items()}
                 rows[-1]["launches_bert"] = bert["kernel_launches"][name]
                 rows[-1]["launches_files"] = files["kernel_launches"][name]
+                rows[-1]["launches_profile"] = prof["kernel_launches"][name]
+                rows[-1]["launches_selfcheck"] = \
+                    selfcheck["kernel_launches"][name]
                 rows[-1]["launches_seq2seq"] = \
                     seq2seq["kernel_launches"][name]
             if name == "paged_attention":

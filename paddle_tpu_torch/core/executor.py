@@ -34,6 +34,7 @@ from paddle_tpu_torch.device import DeviceLike, resolve_device
 from paddle_tpu_torch.models.convert import (load_jax_opt_state,
                                              load_jax_params, param_path,
                                              persistent_buffers)
+from paddle_tpu_torch.profiler.profiler import RecordEvent
 from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.rng import fold_in
 from paddle_tpu_torch.utils.tree import flatten_with_keys, nest
@@ -159,12 +160,13 @@ class Trainer:
         checked (executor.py:212-214)."""
         if generator is None:
             generator = self.step_generator()
-        self.module.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss_fn(self.module, batch, generator, True)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
+        with RecordEvent("Trainer.train_step"):
+            self.module.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, aux = self.loss_fn(self.module, batch, generator, True)
+            loss.backward()
+            self.optimizer.step()
+            self.step += 1
         fetches = {"loss": loss.detach(), **aux}
         if FLAGS.get("check_nan_inf"):
             check_nan_inf(fetches, "train fetches")
@@ -317,7 +319,8 @@ class Executor:
         while cap > 0 and len(self._cache) > cap:
             self._cache.popitem(last=False)
             self.cache_evictions += 1
-        out = fn(**args)
+        with RecordEvent("Executor.run"):
+            out = fn(**args)
         if FLAGS.get("check_nan_inf"):
             check_nan_inf(out, "program outputs")
         if fetch_list is None:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -212,7 +213,15 @@ class InferencePredictor:
     """A predictor over an exported model (JAX's `InferencePredictor`):
     the program and the export's weights on `device` (default the card)
     once, then `run(feed)` (a positional list or a name-keyed dict)
-    returns numpy outputs in JAX's leaf order."""
+    returns numpy outputs in JAX's leaf order.
+
+    `run` may be called from several threads (the C ABI's clones share
+    one predictor): a lock serializes the program's launches, and the
+    copy of the outputs to the host runs outside it, so one call's wait
+    for the card overlaps the next call's launches. Without the lock the
+    threads hand the GIL back and forth at every op of the program (each
+    op releases it), which made 4 threads 0.32x as fast as one on an
+    NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase `cabi`)."""
 
     def __init__(self, model_dir: str, device: DeviceLike = None):
         exported, paths = _program(model_dir)
@@ -223,13 +232,14 @@ class InferencePredictor:
         self.program = exported.module().to(self.device)
         self._state = _state(paths, self.variables, self.device)
         self._input_names = self.signature["input_names"]
+        self._lock = threading.Lock()
 
     def run(self, feed) -> List[np.ndarray]:
         if isinstance(feed, dict):
             inputs = [feed[n] for n in self._input_names]
         else:
             inputs = list(feed)
-        with torch.no_grad():
+        with self._lock, torch.no_grad():
             out = torch.func.functional_call(
                 self.program, self._state,
                 tuple(as_input(x, self.device) for x in inputs))

@@ -40,6 +40,12 @@ autograd Function: its forward launches kernel 4 through the operator
 and saves lse, its backward kernels 5 and 6. `flash_attention` is the
 wrapper. Unlike the JAX wrapper it does not pad T to a block multiple:
 the kernels bound-check their tails.
+
+`flash_dq_op` and `flash_dkv_op` register kernels 5 and 6 the same way
+(`paddle_tpu_torch::flash_dq`, `::flash_dkv`), and `FlashCore`'s
+backward calls them, so that a `torch.profiler` trace links each kernel
+to an operator of its own (profiler/device_trace.py groups kernels by
+the op that launched them) and not to the autograd node that runs both.
 """
 
 from __future__ import annotations
@@ -453,10 +459,50 @@ def _flash_fwd_fake(q, k, v, q_seg, kv_seg, seed, scale, causal, kv_len,
             q.new_empty((b, h, t_q), dtype=torch.float32))
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_dq", mutates_args=())
+def flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor],
+                seed: Optional[torch.Tensor], scale: float, causal: bool,
+                kv_len: Optional[int], dropout_rate: float) -> torch.Tensor:
+    """`flash_dq` as the operator `paddle_tpu_torch::flash_dq`;
+    `flash_dq` is looked up in this module at call time."""
+    return flash_dq(q, k, v, o, lse, do, q_seg, kv_seg, seed, scale=scale,
+                    causal=causal, kv_len=kv_len, dropout_rate=dropout_rate)
+
+
+@flash_dq_op.register_fake
+def _flash_dq_fake(q, k, v, o, lse, do, q_seg, kv_seg, seed, scale, causal,
+                   kv_len, dropout_rate):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_dkv", mutates_args=())
+def flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 q_seg: Optional[torch.Tensor],
+                 kv_seg: Optional[torch.Tensor],
+                 seed: Optional[torch.Tensor], scale: float, causal: bool,
+                 kv_len: Optional[int], dropout_rate: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_dkv` as the operator `paddle_tpu_torch::flash_dkv`;
+    `flash_dkv` is looked up in this module at call time."""
+    return flash_dkv(q, k, v, o, lse, do, q_seg, kv_seg, seed, scale=scale,
+                     causal=causal, kv_len=kv_len, dropout_rate=dropout_rate)
+
+
+@flash_dkv_op.register_fake
+def _flash_dkv_fake(q, k, v, o, lse, do, q_seg, kv_seg, seed, scale, causal,
+                    kv_len, dropout_rate):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
 class FlashCore(torch.autograd.Function):
     """`_flash_core` (flash.py:551-578): the forward runs kernel 4
     (through `flash_fwd_op`) and saves lse; the backward runs kernels 5
-    and 6. The kernels are looked up in this module at call time."""
+    and 6 (through `flash_dq_op` and `flash_dkv_op`). The kernels are
+    looked up in this module at call time."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, seed, scale, causal, kv_len,
@@ -473,9 +519,11 @@ class FlashCore(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, q_seg, kv_seg, seed = ctx.saved_tensors
         do = do.contiguous()
-        dq = flash_dq(q, k, v, o, lse, do, q_seg, kv_seg, seed, **ctx.cfg)
-        dk, dv = flash_dkv(q, k, v, o, lse, do, q_seg, kv_seg, seed,
-                           **ctx.cfg)
+        cfg = ctx.cfg
+        args = (q, k, v, o, lse, do, q_seg, kv_seg, seed, cfg["scale"],
+                cfg["causal"], cfg["kv_len"], cfg["dropout_rate"])
+        dq = flash_dq_op(*args)
+        dk, dv = flash_dkv_op(*args)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 

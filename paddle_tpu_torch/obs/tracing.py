@@ -1,13 +1,14 @@
 """Per-request lifecycle tracing for the serve engine.
 
 Port of paddle_tpu/obs/tracing.py (RequestTracer, `merged_chrome_trace`
-and `stitch_fragments` are copies). `now_us` is a copy of
-paddle_tpu/profiler/profiler.py's clock and `Timeline` of
-paddle_tpu/profiler/timeline.py's merger, so traces of either package
-share one epoch-anchored timeline and stitch into one trace. The port
-records no host profiler spans yet (`profiler/` is ROADMAP.md item 10c),
-so `merged_chrome_trace`'s "engine host" process carries only its
-process row — what JAX's gives when its profiler was not started.
+and `stitch_fragments` are copies). Timestamps come from the host
+profiler's epoch-anchored clock (`profiler.now_us`), and merging goes
+through its timeline merger (`profiler.timeline.Timeline`), as in JAX's,
+so traces of either package share one timeline and stitch into one
+trace. `merged_chrome_trace`'s "engine host" process carries the host
+profiler's spans recorded between `start_profiler` and `stop_profiler`:
+`Trainer.train_step`, `MeshTrainer.train_step`, `Executor.run` and any
+`RecordEvent` of the caller's.
 
 Each request's life is a sequence of host-side SPANS —
 queued -> prefill -> decode, re-entering queued on preemption — plus
@@ -40,19 +41,10 @@ from __future__ import annotations
 
 import json
 import threading
-import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
-# Wall-clock anchor for the monotonic counter: timestamps are epoch-based
-# microseconds so traces from different processes merge on one timeline.
-_EPOCH_NS = time.time_ns() - time.perf_counter_ns()
-
-
-def now_us() -> float:
-    """Epoch-anchored monotonic microseconds."""
-    return (_EPOCH_NS + time.perf_counter_ns()) / 1e3
-
+from paddle_tpu_torch.profiler.profiler import now_us
 
 # span names, in lifecycle order
 QUEUED, PREFILL, DECODE = "queued", "prefill", "decode"
@@ -282,48 +274,20 @@ class RequestTracer:
             json.dump(self.to_chrome_trace(), f)
 
 
-class Timeline:
-    """Accumulates events from named profiles into one Chrome trace
-    (paddle_tpu/profiler/timeline.py's merger): each profile gets its
-    own pid and process_name row; thread_name rows survive."""
-
-    def __init__(self):
-        self._events: List[dict] = []
-        self._pid = 0
-
-    def add_profile(self, name: str, profile: dict) -> None:
-        pid = self._pid
-        self._pid += 1
-        self._events.append({
-            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
-            "args": {"name": name},
-        })
-        for ev in profile.get("traceEvents", []):
-            # the source's process_name is superseded by `name`, but
-            # thread_name rows (the request tracer's "req N" labels)
-            # must survive the merge
-            if ev.get("ph") == "M" and ev.get("name") != "thread_name":
-                continue
-            ev = dict(ev)
-            ev["pid"] = pid
-            self._events.append(ev)
-
-    def trace(self) -> dict:
-        return {"traceEvents": self._events, "displayTimeUnit": "ms"}
-
-
 def merged_chrome_trace(tracer: RequestTracer,
                         include_host_spans: bool = True,
                         path: Optional[str] = None) -> dict:
-    """Merge the request-lifecycle trace with the host spans into ONE
-    Chrome trace via the multi-process timeline merger — request rows
-    and host spans share the epoch-anchored clock, so they line up
-    without shifting."""
+    """Merge the request-lifecycle trace with the host profiler's
+    recorded spans (profiler.get_events between start/stop_profiler)
+    into ONE Chrome trace via the multi-process timeline merger —
+    request rows and engine host spans share the epoch-anchored
+    clock, so they line up without shifting."""
+    from paddle_tpu_torch.profiler.profiler import events_to_chrome_trace
+    from paddle_tpu_torch.profiler.timeline import Timeline
+
     tl = Timeline()
     if include_host_spans:
-        # the port records no host profiler spans yet: the host process
-        # gets its row and nothing under it
-        tl.add_profile("engine host", {"traceEvents": []})
+        tl.add_profile("engine host", events_to_chrome_trace())
     tl.add_profile("serve requests", tracer.to_chrome_trace())
     trace = tl.trace()
     if path:
@@ -339,6 +303,8 @@ def stitch_fragments(fragments: List[Tuple[str, dict]],
     router's /trace/<id> body. Fragments share the epoch-anchored
     clock, so no time shifting is needed; the timeline merger re-pids
     each profile and keeps thread_name metadata."""
+    from paddle_tpu_torch.profiler.timeline import Timeline
+
     tl = Timeline()
     for label, frag in fragments:
         if frag:

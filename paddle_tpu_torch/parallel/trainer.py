@@ -110,6 +110,7 @@ from paddle_tpu_torch.parallel.sharding import (BatchSharding, Piece,
                                                 _entry_axes, fsdp_rules,
                                                 local_index, shard_module)
 from paddle_tpu_torch.parallel.strategy import DistStrategy, ReduceStrategy
+from paddle_tpu_torch.profiler.profiler import RecordEvent
 from paddle_tpu_torch.resilience.errors import BadStepBudgetExceeded
 from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.log import resilience_event
@@ -518,7 +519,8 @@ class MeshTrainer(Trainer):
         named = [(n, p) for n, p in self.module.named_parameters()
                  if p.requires_grad]
         params = [p for _, p in named]
-        with self.mesh, batch_axes_scope(self.batch_axes):
+        with RecordEvent("MeshTrainer.train_step"), self.mesh, \
+                batch_axes_scope(self.batch_axes):
             loss, aux, grads = self._loss_and_grads(batch, generator,
                                                     params)
             grads = self._reduce_grads([n for n, _ in named], grads)

@@ -1,17 +1,20 @@
 """Build-on-demand scaffold for the port's native (C++) components (port
 of paddle_tpu/utils/native.py).
 
-`recordio/recordio.cc` and `data/datafeed.cc` are compiled with g++
-into shared libraries and bound with ctypes (a flat C ABI, no pybind11).
+`recordio/recordio.cc`, `data/datafeed.cc` and `serving/serving.cc`
+are compiled with g++ into shared libraries and bound with ctypes (a
+flat C ABI, no pybind11); `serving/demo.cc` and `serving/train_demo.cc`
+into executables.
 This module owns the common mechanics, so a fix lands in one place:
 
 - libraries land in `build/paddle_tpu_torch/native/` at the repository
   root (git-ignored), as the CUDA kernels land in
   `build/paddle_tpu_torch/` (kernels/build.py): the port never loads a
   library that the JAX package built into its own cache directory;
-- each library is named by a hash of its source and the compiler
-  flags (`librecordio-<hash>.so`), so an edited source builds anew and
-  two checkouts or packages never load each other's build;
+- each library or program is named by a hash of its source and the
+  compiler flags (`librecordio-<hash>.so`, `ptpu_demo-<hash>`), so an
+  edited source builds anew and two checkouts or packages never load
+  each other's build;
 - a build writes a temporary file suffixed with its process and thread
   and `os.replace`s it into place, so parallel builders (test workers,
   threads) never load a half-written file;
@@ -35,6 +38,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "paddle_tpu_torch" / "native")
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+# an executable's (serving/demo.cc, serving/train_demo.cc)
+EXE_FLAGS = ("-O2", "-std=c++17")
 # the bytes of g++'s output a failure keeps
 ERROR_TAIL = 2000
 
@@ -54,11 +59,21 @@ def library_path(src: str, libname: str,
                  extra_flags: Sequence[str] = ()) -> Path:
     """Where `src` built with `extra_flags` lives: `libname`'s stem plus
     a hash of the source and the flags."""
-    key = hashlib.sha256(
-        Path(src).read_bytes()
-        + " ".join((CXX, *CXX_FLAGS, *extra_flags)).encode()).hexdigest()
     stem = libname[:-3] if libname.endswith(".so") else libname
-    return BUILD_DIR / f"{stem}-{key[:16]}.so"
+    return BUILD_DIR / f"{stem}-{_key(src, CXX_FLAGS, extra_flags)}.so"
+
+
+def binary_path(src: str, name: str,
+                extra_flags: Sequence[str] = ()) -> Path:
+    """Where the executable `src` built with `extra_flags` lives: `name`
+    plus a hash of the source and the flags."""
+    return BUILD_DIR / f"{name}-{_key(src, EXE_FLAGS, extra_flags)}"
+
+
+def _key(src: str, flags: Sequence[str], extra_flags: Sequence[str]) -> str:
+    return hashlib.sha256(
+        Path(src).read_bytes()
+        + " ".join((CXX, *flags, *extra_flags)).encode()).hexdigest()[:16]
 
 
 def compile_shared(src: str, libname: str, extra_flags: Sequence[str] = (),
@@ -67,13 +82,29 @@ def compile_shared(src: str, libname: str, extra_flags: Sequence[str] = (),
     return the path; raises NativeBuildError with g++'s output tail."""
     if not os.path.exists(src):
         raise NativeBuildError(f"no source {src}")
-    out = library_path(src, libname, extra_flags)
+    return _compile(src, library_path(src, libname, extra_flags),
+                    CXX_FLAGS, extra_flags, timeout)
+
+
+def compile_binary(src: str, name: str, extra_flags: Sequence[str] = (),
+                   timeout: float = 180.0) -> Path:
+    """Compile and link the program `src` into its hashed executable
+    (unless it is there) and return the path; raises NativeBuildError
+    with g++'s output tail."""
+    if not os.path.exists(src):
+        raise NativeBuildError(f"no source {src}")
+    return _compile(src, binary_path(src, name, extra_flags), EXE_FLAGS,
+                    extra_flags, timeout)
+
+
+def _compile(src: str, out: Path, flags: Sequence[str],
+             extra_flags: Sequence[str], timeout: float) -> Path:
     if out.is_file():
         return out
     cache_dir()
     tmp = out.with_name(
         f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [CXX, *CXX_FLAGS, src, *extra_flags, "-o", str(tmp)]
+    cmd = [CXX, *flags, src, *extra_flags, "-o", str(tmp)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=timeout)

@@ -75,7 +75,10 @@ def test_scan_covers_the_package():
                 "parallel/moe.py", "parallel/pipeline.py",
                 "testing/parallel_cases.py", "utils/native.py",
                 "utils/interop.py", "utils/debug.py", "recordio/__init__.py",
-                "recordio/recordio.py", "data/datafeed.py"):
+                "recordio/recordio.py", "data/datafeed.py",
+                "profiler/__init__.py", "profiler/profiler.py",
+                "profiler/timeline.py", "profiler/device_trace.py",
+                "kernels/selfcheck.py", "serving/__init__.py"):
         assert f"paddle_tpu_torch/{mod}" in names
     assert {"chip_smoke.py", "chip_train_losses.py",
             "chip_ragged_sweep.py", "chip_mesh_nccl.py"} <= names
@@ -138,7 +141,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.testing.dist_worker_deepfm, "
             "paddle_tpu_torch.recordio, paddle_tpu_torch.data.datafeed, "
             "paddle_tpu_torch.utils.native, paddle_tpu_torch.utils.interop, "
-            "paddle_tpu_torch.utils.debug, paddle_tpu_torch; "
+            "paddle_tpu_torch.utils.debug, paddle_tpu_torch.profiler, "
+            "paddle_tpu_torch.profiler.device_trace, "
+            "paddle_tpu_torch.profiler.timeline, "
+            "paddle_tpu_torch.kernels.selfcheck, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -214,9 +221,7 @@ NOT_PORTED_NAMES = {
 # JAX subpackages without a counterpart yet, or on purpose
 NOT_PORTED_PACKAGES = {
     "analysis": "graftlint lints source; it is not a runtime",
-    "benchmark": "ROADMAP item 10d",
-    "profiler": "ROADMAP item 10d",
-    "serving": "ROADMAP item 10e",
+    "benchmark": "the port's first `benchmark` PR",
 }
 JAX_ROOT = ROOT / "paddle_tpu"
 PORT_ROOT = ROOT / "paddle_tpu_torch"
