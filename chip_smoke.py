@@ -112,6 +112,12 @@ user calls:
 - `book`: LeNet on the seeded synthetic MNIST through the `data`
   readers and `device_prefetch`, 3 epochs, checkpoint restore, export
   and `freeze_int8`, test accuracy > 0.7 in float and int8;
+- `benchmark`: `paddle_tpu_torch.benchmark`, as its CLI calls it:
+  `run_model("transformer")` and `run_model("lm_longctx")` in bf16 for
+  a short timed window each (kernels 4-6 a layer a step, counted), and
+  `run_infer` on the CausalLM through a ServeEngine over fp KV pools
+  (kernel 1) and with the in-device int8 tier (kernel 2), each
+  BenchResult printed beside the card's name and power limit;
 - `mesh_train`: `MeshTrainer` over ranks of `parallel/launch.py` (one
   process a rank; on one card the ranks share it over gloo): the LM at
   dp=2, at fsdp=2 (ZeRO under REDUCE) and at tp=2 (Megatron: the flash
@@ -144,6 +150,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import gc
 import gzip
 import itertools
@@ -166,6 +173,8 @@ import torch
 
 from paddle_tpu_torch import (data, optim, profiler, quant, recordio,
                               serving)
+from paddle_tpu_torch import benchmark as bench
+from paddle_tpu_torch.benchmark.models import run_infer
 from paddle_tpu_torch.core import Trainer, supervised_loss, train_from_files
 from paddle_tpu_torch.data import write_slot_file
 from paddle_tpu_torch.engine import HostKVTier, ServeEngine
@@ -5503,6 +5512,71 @@ def phase_book(cfg: dict, device: torch.device, card: dict) -> dict:
 
 # -- training over a mesh of ranks -------------------------------------------
 
+def _bench_line(what: str, r, launches: Dict[str, int], calls: int,
+                card: dict) -> dict:
+    """One BenchResult (unrounded) with the launches its run made, per
+    step, beside the card's name and power limit; checked sane."""
+    d = dataclasses.asdict(r)
+    check(np.isfinite(r.value) and r.value > 0 and r.ms_per_step > 0,
+          f"benchmark {what}: {d}")
+    check(r.mfu is None or 0.0 < r.mfu < 1.0, f"benchmark {what}: MFU {d}")
+    line = {"phase": "benchmark", "run": what, "result": d,
+            "kernel_launches": launches, "calls": calls,
+            "launches_per_call": {k: v / calls for k, v in launches.items()
+                                  if v},
+            "device": card["kind"], "nvidia_smi": card["smi"]}
+    emit(line)
+    return line
+
+
+def phase_benchmark(cfg: dict, device: torch.device, card: dict) -> dict:
+    """`paddle_tpu_torch.benchmark` on the card, through the entry points
+    its CLI calls: `run_model("transformer")` (Transformer-base WMT,
+    bf16, B 32 x T 256: kernels 4-6 in the encoder, the decoder's causal
+    self-attention and the cross-attention), `run_model("lm_longctx")`
+    (the LM at LM_BASE, bf16, B 1 x T 16384, fused CE: kernels 4-6), and
+    `run_infer` on the CausalLM through a ServeEngine, over fp KV pools
+    (kernel 1) and with the in-device int8 tier (kernel 2), each for a
+    short timed window. Launch counts are set to 0 just before each run
+    and read just after: a train spec's steps are its timed ones, the
+    warm-up and the counted step (`bench_trainer`); each must launch
+    its kernels once a layer a step (three attentions a layer for the
+    Transformer) and no other kernel."""
+    cuda = device.type == "cuda"
+    bc = cfg["benchmark"]
+    dev = "cuda" if cuda else "cpu"
+    out = {}
+    for what, (name, kw, per_step) in bc["train"].items():
+        _reset_launches()
+        r = bench.run_model(name, dtype=bc["dtype"], min_time=bc["min_time"],
+                            device=dev, **kw)
+        launches = _launches()
+        calls = r.steps + 4                 # + 3 warm-up + the counted step
+        want = dict.fromkeys(launches, 0)
+        if cuda:
+            want.update(dict.fromkeys(FLASH_KERNELS, calls * per_step))
+        check(launches == want, f"benchmark {what}: launches {launches} "
+                                f"!= {want} ({calls} steps)")
+        out[what] = _bench_line(what, r, launches, calls, card)
+    for what, (kernel, kw) in bc["infer"].items():
+        _reset_launches()
+        r = run_infer(what, dtype=bc["dtype"], min_time=bc["min_time"],
+                      device=dev, **kw)
+        launches = _launches()
+        calls = r.steps + 3                 # + 3 warm-up waves
+        layers = kw.get("num_layers", LM_BASE["num_layers"])
+        others = {k: v for k, v in launches.items() if k != kernel}
+        check(not any(others.values()) and (
+            launches[kernel] > 0 and launches[kernel] % layers == 0
+            if cuda else launches[kernel] == 0),
+            f"benchmark {what}: launches {launches}")
+        out[what] = _bench_line(what, r, launches, calls, card)
+    launches = {k: sum(o["kernel_launches"][k] for o in out.values())
+                for k in out[next(iter(out))]["kernel_launches"]}
+    out["kernel_launches"] = launches
+    return out
+
+
 MESH_MODES = {"dp": "lm_dp", "fsdp": "lm_fsdp", "tp": "lm_tp"}
 # f32 parity bars: tests/test_parallel.py:147-152 (dp, fsdp) and
 # :223-228 (tp): (loss rtol, param rtol, param atol)
@@ -6049,6 +6123,18 @@ def full_config() -> dict:
                     lm_prompts=(40, 100, 7, 64), lm_new=16),
         # book: tests/test_book_mnist.py's LeNet run
         book=dict(train=2048, test=512, epochs=3),
+        # benchmark: paddle_tpu_torch.benchmark's specs at their defaults
+        # (models.py: transformer B 32 x T 256, lm_longctx B 1 x T
+        # 16384; causal_lm waves of 16 prompts of 128 + 32 new tokens) in
+        # bf16, a 1 s window each; (spec, its keywords, flash launches a
+        # step: a layer's attentions)
+        benchmark=dict(
+            dtype=torch.bfloat16, min_time=1.0,
+            train={"transformer": ("transformer", {}, 3 * 6),
+                   "lm_longctx": ("lm_longctx", {}, LM_BASE["num_layers"])},
+            infer={"causal_lm": ("ragged_paged_attention", {}),
+                   "causal_lm_int8kv": ("ragged_paged_attention_mixed",
+                                        {})}),
         # mesh_train: the LM at full width, f32 at 2 layers (B 4 x T 256,
         # 3 SGD steps, as tests/test_parallel.py's parity bar) and bf16 at
         # full depth (phase train's B 4 x T 2048, 4 Adam steps);
@@ -6148,6 +6234,22 @@ def tiny_config() -> dict:
                     resnet_batch=2, lm_example=8, lm_prompts=(5, 9),
                     lm_new=4),
         book=dict(train=2048, test=512, epochs=3),
+        benchmark=dict(
+            dtype=torch.float32, min_time=0.01,
+            train={"transformer": ("transformer", dict(
+                       batch_size=2, seq_len=8, vocab=97, model_dim=32,
+                       num_heads=4, num_layers=2, ffn_dim=64), 3 * 2),
+                   "lm_longctx": ("lm_longctx", dict(
+                       seq_len=32, vocab=97, model_dim=32, num_heads=4,
+                       num_layers=2, ffn_dim=64), 2)},
+            infer={name: (kernel, dict(
+                       batch_size=2, vocab=61, model_dim=32, num_heads=4,
+                       num_layers=2, ffn_dim=64, max_len=16, prompt=6,
+                       new=3))
+                   for name, kernel in (
+                       ("causal_lm", "ragged_paged_attention"),
+                       ("causal_lm_int8kv",
+                        "ragged_paged_attention_mixed"))}),
         # the vocab a multiple of 4 (the tp and fsdp rows split evenly);
         # a min_size the tiny weights reach
         mesh_train=dict(
@@ -6249,6 +6351,7 @@ def main(argv=None) -> int:
         phase_quant(cfg, device, card)
         export = phase_export(cfg, tree, device, card)
         phase_book(cfg, device, card)
+        benchmark = phase_benchmark(cfg, device, card)
         mesh = phase_mesh_train(cfg, device, card)
         par = phase_mesh_parallel(cfg, device, card)
 
@@ -6283,6 +6386,9 @@ def main(argv=None) -> int:
                 rows[-1]["launches_generate"] = {
                     dt: r["kernel_launches"][name]
                     for dt, r in generate.items()}
+            if name in FLASH_KERNELS or name.startswith("ragged"):
+                rows[-1]["launches_benchmark"] = \
+                    benchmark["kernel_launches"][name]
             if name in FLASH_KERNELS:
                 rows[-1]["launches_mesh_tp_per_rank"] = [
                     r[name] for r in mesh["tp"]["kernel_launches"]]

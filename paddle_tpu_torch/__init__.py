@@ -1,9 +1,9 @@
 """paddle_tpu_torch: the PyTorch + CUDA port of paddle_tpu.
 
 The JAX package `paddle_tpu` stays the reference; this package mirrors
-its module names (core/, data/, engine/, io/, kernels/, models/, nn/,
-obs/, ops/, optim/, parallel/, quant/, recordio/, resilience/, serve/,
-utils/) so each part has an obvious counterpart, and imports neither
+its module names (benchmark/, core/, data/, engine/, io/, kernels/,
+models/, nn/, obs/, ops/, optim/, parallel/, quant/, recordio/,
+resilience/, serve/, utils/) so each part has an obvious counterpart, and imports neither
 `jax` nor `paddle_tpu`. Plain tensor code is PyTorch; every kernel that
 the JAX package wrote in Pallas for the TPU is a hand-written CUDA
 kernel under `kernels/csrc/`, built at first use (kernels/build.py); the

@@ -23,7 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear_cross_entropy", "effective_chunk", "DEFAULT_CHUNK"]
+__all__ = ["linear_cross_entropy", "effective_chunk", "mfu_flops_correction",
+           "DEFAULT_CHUNK"]
 
 DEFAULT_CHUNK = 8192  # default vocab tile width
 
@@ -38,6 +39,25 @@ def effective_chunk(v: int, chunk: int = DEFAULT_CHUNK) -> int:
     """The vocab tile width linear_cross_entropy scans for a V-column
     classifier: `chunk` clamped to V rounded up to 256 (fused_ce.py:46)."""
     return min(chunk, _num_chunks(v, 256) * 256)
+
+
+def mfu_flops_correction(n_tokens: int, dim: int, vocab: int,
+                         chunk: int = DEFAULT_CHUNK,
+                         counted_chunks: int = 1) -> float:
+    """FLOPs to ADD to a counted step so a step using
+    linear_cross_entropy reports MFU on the model-FLOPs basis of the
+    unfused head, 6*N*D*V (fwd logits + two bwd matmuls; recompute is
+    not useful work) (fused_ce.py:54).
+
+    Each counted chunk is 8*N*D*chunk (fwd 2, bwd recompute + dl @ w^T +
+    h^T @ dl 6). XLA's cost analysis counts the scan body once, JAX's
+    case and the default; the port's FLOP counter
+    (torch.utils.flop_counter, benchmark.harness.compiled_flops) sees
+    every chunk of the eager loop: pass counted_chunks = the chunk
+    count, ceil(V / effective_chunk). Negative when the counted work
+    exceeds the model basis — still correct."""
+    c = effective_chunk(vocab, chunk)
+    return float(n_tokens) * dim * (6.0 * vocab - 8.0 * c * counted_chunks)
 
 
 def _padded(w: torch.Tensor, b: Optional[torch.Tensor], v_pad: int):

@@ -594,6 +594,220 @@ def run_pipe_ckpt(mesh) -> Dict[str, np.ndarray]:
     return out
 
 
+# -- the dry-run gate: __graft_entry__._dryrun_impl(8)'s phases -------------------
+# Each runner drives one phase on one rank of its mesh — or, with mesh
+# None, on one CPU rank: the reference the phase is held against (the
+# pipelines' reference is the dense step, as JAX's). The widths, seeds,
+# batches and optimizers are _dryrun_impl's at 8 devices.
+
+DRY_TF = dict(src_vocab=64, trg_vocab=64, model_dim=32, num_heads=4,
+              num_layers=2, ffn_dim=64)
+DRY_MOE = dict(e=8, d=16, hid=32, tokens=32)
+
+
+def _dry_mesh(mesh):
+    from paddle_tpu_torch.parallel import make_mesh
+    return mesh if mesh is not None else make_mesh(devices=["cpu"])
+
+
+def _dry_step(tr, batch) -> Dict[str, np.ndarray]:
+    """One step: the loss, the reduced gradients (this rank's pieces) and
+    the state after."""
+    from paddle_tpu_torch.testing.mesh_cases import _state
+    loss = tr.train_step(tr.put_batch(batch))["loss"]
+    return {"loss": np.asarray(float(loss)), **_grad_pieces(tr),
+            **_state(tr)}
+
+
+def run_dry_mlp(mesh) -> Dict[str, np.ndarray]:
+    """Phase 1: an MLP on dp x fsdp (ZeRO under REDUCE, fsdp_rules at
+    min_size 64) with 2 accumulated microbatches, one Adam step."""
+    from paddle_tpu_torch.core.executor import supervised_loss
+    from paddle_tpu_torch.models import load_jax_params
+    from paddle_tpu_torch.models.vision import MLP
+    from paddle_tpu_torch.ops.functional import softmax_with_cross_entropy
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.parallel import (DistStrategy, MeshTrainer,
+                                           ReduceStrategy)
+    from paddle_tpu_torch.parallel.sharding import fsdp_rules
+    from paddle_tpu_torch.testing.mesh_cases import mlp_tree
+    mesh = _dry_mesh(mesh)
+    m = load_jax_params(MLP(hidden=(64, 64), num_classes=8,
+                            in_shape=(16, 1, 1), device=mesh.device),
+                        mlp_tree((64, 64), 16, 8, seed=0))
+    tr = MeshTrainer(m, Adam(m.parameters(), 1e-3),
+                     supervised_loss(softmax_with_cross_entropy), mesh,
+                     strategy=DistStrategy(
+                         reduce_strategy=ReduceStrategy.REDUCE,
+                         gradient_accumulation_steps=2),
+                     rules=fsdp_rules(min_size=64))
+    x = np.random.RandomState(0).randn(32, 16).astype(np.float32)
+    y = np.random.RandomState(1).randint(0, 8, 32).astype(np.int64)
+    return _dry_step(tr, (x, y))
+
+
+def run_dry_tf(mesh) -> Dict[str, np.ndarray]:
+    """Phase 2: a Transformer on dp x tp (Megatron rules), batch over dp,
+    one Adam step."""
+    from paddle_tpu_torch.models import Transformer, load_jax_params
+    from paddle_tpu_torch.ops.functional import softmax_with_cross_entropy
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.parallel import DistStrategy, MeshTrainer
+    from paddle_tpu_torch.parallel.sharding import transformer_tp_rules
+    from paddle_tpu_torch.testing import transformer_tree
+    mesh = _dry_mesh(mesh)
+    d = DRY_TF
+    m = load_jax_params(
+        Transformer(dropout=0.0, max_len=32, device=mesh.device, **d),
+        transformer_tree(0, d["src_vocab"], d["trg_vocab"], d["model_dim"],
+                         d["num_heads"], d["num_layers"], d["ffn_dim"],
+                         random_norms=True))
+
+    def loss_fn(module, batch, generator, training):
+        src, trg_in, trg_out = batch
+        logits = module(src, trg_in, generator=generator)
+        return softmax_with_cross_entropy(logits, trg_out).mean(), {}
+
+    tr = MeshTrainer(m, Adam(m.parameters(), 1e-3), loss_fn, mesh,
+                     strategy=DistStrategy(batch_axes=("dp",)),
+                     rules=transformer_tp_rules())
+    rs = np.random.RandomState(2)
+    src = rs.randint(0, 64, (4, 8)).astype(np.int32)
+    trg = rs.randint(0, 64, (4, 9)).astype(np.int32)
+    return _dry_step(tr, (src, trg[:, :-1], trg[:, 1:]))
+
+
+def dry_dense_lm(kind: str, batch, **model_kw) -> Dict[str, np.ndarray]:
+    """The pipelines' reference: one dense Adam (1e-2) step of
+    build_lm(kind) on one CPU rank — its forward's mean CE (JAX's
+    `dense_lm_loss`); the loss, the gradients and the parameters
+    after."""
+    from paddle_tpu_torch.models.convert import param_path
+    from paddle_tpu_torch.ops.functional import softmax_with_cross_entropy
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.testing.mesh_cases import pieces
+    from paddle_tpu_torch.utils.tree import nest
+    model = build_lm(kind, "cpu", **model_kw)
+    opt = Adam(model.parameters(), 1e-2)
+    x, y = (torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
+    loss = softmax_with_cross_entropy(model(x).float(), y).mean()
+    loss.backward()
+    opt.step()
+    named = list(model.named_parameters())
+    return {"loss": np.asarray(float(loss.detach())),
+            **pieces(nest({param_path(n): p.grad for n, p in named}),
+                     "grads"),
+            **pieces(nest({param_path(n): p.detach() for n, p in named}),
+                     "params")}
+
+
+def dry_pipe_batch() -> Tuple[np.ndarray, np.ndarray]:
+    tok = np.random.RandomState(3).randint(0, 32, (8, 9)).astype(np.int32)
+    return tok[:, :-1], tok[:, 1:]
+
+
+def dry_moe_lm_batch() -> Tuple[np.ndarray, np.ndarray]:
+    tok = np.random.RandomState(44).randint(0, 32, (16, 9)).astype(np.int32)
+    return tok[:, :-1], tok[:, 1:]
+
+
+def run_dry_pipe(mesh) -> Dict[str, np.ndarray]:
+    """Phase 3: PipelinedLM (4 stages, v = 2 on pp=2) under GPipe with
+    Megatron tp and ring attention inside each stage and the fused CE,
+    4 microbatches, one Adam step; the dense step without a mesh."""
+    if mesh is None:
+        return dry_dense_lm("lm", dry_pipe_batch())
+    tr = lm_trainer(mesh, "lm", num_microbatches=4, tp_axis="tp",
+                    sp_axis="sp", fused_ce=True)
+    return _dry_step(tr, dry_pipe_batch())
+
+
+def run_dry_1f1b(mesh) -> Dict[str, np.ndarray]:
+    """Phase 3b: the same model and batch under 1F1B over pp x tp x dp
+    (sp folded into dp), fused CE; the dense step without a mesh."""
+    if mesh is None:
+        return dry_dense_lm("lm", dry_pipe_batch())
+    tr = lm_trainer(mesh, "lm", num_microbatches=4, tp_axis="tp",
+                    fused_ce=True, schedule="1f1b")
+    return _dry_step(tr, dry_pipe_batch())
+
+
+def run_dry_moe(mesh) -> Dict[str, np.ndarray]:
+    """Phase 4: mean(y^2) + 0.01 x the balance loss of the MoE FFN (8
+    experts, D 16, hidden 32, top-2) on 32 tokens and its gradients,
+    masked (tokens whole on every rank) and all_to_all (tokens over ep,
+    capacity factor E/k: no drops). The a2a loss is the sum of the
+    ranks' parts: sum(y_r^2) / (T D) + 0.01 (E / n) sum_e f_e P_e,r with
+    f the routed shares over every token (no gradient) and P_e,r the
+    rank's mean router probabilities, so the ranks' gate gradients sum
+    to the gradient of the whole loss. Without a mesh: moe_ffn on one
+    rank."""
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.moe import (load_balancing_loss, moe_ffn,
+                                               moe_ffn_a2a)
+    c = DRY_MOE
+    p = moe_params(4, e=c["e"], d=c["d"], hid=c["hid"])
+    x = np.random.RandomState(4).randn(c["tokens"], c["d"]).astype(
+        np.float32)
+
+    def lossed(prefix, params, y, aux):
+        loss = torch.mean(y ** 2) + 0.01 * load_balancing_loss(aux)
+        loss.backward()
+        return {f"{prefix}/loss": _host(loss),
+                **{f"{prefix}/{n}": _host(t.grad) for n, t in params.items()}}
+
+    if mesh is None:
+        pg = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+        return lossed("masked", pg, *moe_ffn(pg, torch.from_numpy(x), k=2))
+    out = {}
+    pg = _moe_local(mesh, True, p)
+    out.update(lossed("masked", pg, *moe_ffn(pg, _t(x, mesh), mesh=mesh,
+                                             k=2)))
+    pg = _moe_local(mesh, True, p)
+    y, aux = moe_ffn_a2a(pg, _t(shard(x, mesh, "ep", 0), mesh), mesh, k=2,
+                         capacity_factor=c["e"] / 2)
+    e, n = c["e"], mesh.shape["ep"]
+    probs = aux["router_probs"]
+    f = torch.nn.functional.one_hot(aux["expert_index"].long(), e).to(
+        probs.dtype).mean(0)
+    f = C.all_reduce(f, mesh.group("ep"), "mean")
+    part = (torch.sum(y ** 2) / (c["tokens"] * c["d"])
+            + 0.01 * e / n * torch.sum(f * probs.mean(0)))
+    part.backward()
+    out["a2a/loss_part"] = _host(part)
+    out.update({f"a2a/{k}": _host(t.grad) for k, t in pg.items()})
+    return out
+
+
+def run_dry_moe_lm(mesh) -> Dict[str, np.ndarray]:
+    """Phase 4b: PipelinedMoELM (2 stages, 4 experts each, capacity
+    factor 2 = E/k: no drops) on pp x ep x dp, 4 microbatches, no
+    balance loss, one Adam step; the dense step without a mesh."""
+    if mesh is None:
+        return dry_dense_lm("moe", dry_moe_lm_batch(), capacity_factor=2.0)
+    tr = lm_trainer(mesh, "moe", model_kw=dict(capacity_factor=2.0),
+                    num_microbatches=4, lb_weight=0.0)
+    return _dry_step(tr, dry_moe_lm_batch())
+
+
+def dry_ring_q() -> np.ndarray:
+    """Phase 5's q = k = v: [2, 64, 8, 32] from RandomState(5)."""
+    return np.random.RandomState(5).randn(2, 64, 8, 32).astype(np.float32)
+
+
+def run_dry_ring(mesh) -> Dict[str, np.ndarray]:
+    """Phase 5: causal ring attention and Ulysses over sp (the rank's
+    output shards)."""
+    from paddle_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+    q = _t(shard(dry_ring_q(), mesh, "sp", 1), mesh)
+    return {"ring": _host(ring_attention(q, q, q, mesh, causal=True)),
+            "ulysses": _host(ulysses_attention(q, q, q, mesh, causal=True))}
+
+
+DRY_CASES = ("dry_mlp", "dry_tf", "dry_pipe", "dry_1f1b", "dry_moe",
+             "dry_moe_lm", "dry_ring")
+
+
 # -- chip_smoke.py's mesh_parallel: the slice's paths at full width ------------
 # (PTPU_PAR, `par_conf`, gives the shapes; the ranks share the card)
 
@@ -1006,6 +1220,14 @@ CASES: Dict[str, Tuple[Dict[str, int], Callable]] = {
     "chip_pipe": (dict(pp=2), run_chip_pipe),
     "chip_moe": (dict(ep=2), run_chip_moe),
     "chip_moe_lm": (dict(pp=2, ep=2), run_chip_moe_lm),
+    # the dry-run gate (tests/test_torch_dryrun_gate.py): 8 ranks
+    "dry_mlp": (dict(dp=4, fsdp=2), run_dry_mlp),
+    "dry_tf": (dict(dp=2, tp=4), run_dry_tf),
+    "dry_pipe": (dict(pp=2, tp=2, sp=2), run_dry_pipe),
+    "dry_1f1b": (dict(pp=2, tp=2, dp=2), run_dry_1f1b),
+    "dry_moe": (dict(ep=4, dp=2), run_dry_moe),
+    "dry_moe_lm": (dict(pp=2, ep=2, dp=2), run_dry_moe_lm),
+    "dry_ring": (dict(sp=8), run_dry_ring),
 }
 
 

@@ -221,7 +221,6 @@ NOT_PORTED_NAMES = {
 # JAX subpackages without a counterpart yet, or on purpose
 NOT_PORTED_PACKAGES = {
     "analysis": "graftlint lints source; it is not a runtime",
-    "benchmark": "the port's first `benchmark` PR",
 }
 JAX_ROOT = ROOT / "paddle_tpu"
 PORT_ROOT = ROOT / "paddle_tpu_torch"
@@ -259,6 +258,7 @@ def test_top_level_names_and_lazy_subpackages():
     assert P.__version__ == J.__version__
     assert P.data.MultiSlotDataFeed and P.recordio.Scanner
     assert P.io.save_persistables and P.kernels.paged_attention
+    assert P.benchmark.run_model and P.benchmark.MODELS
     for name in NOT_PORTED_PACKAGES:
         if name != "analysis":
             assert not hasattr(P, name)
